@@ -1,0 +1,252 @@
+"""Sequence runners: drive the estimator over a dataset.
+
+Counterpart of `plslam/runner.py`. `run_euroc` is the points-only streaming
+pipeline (PNG decode + CLAHE → point frontend → IMU pairing → estimator),
+`run_synthetic` feeds simulator observations straight to the estimator.
+Every entry point takes an explicit `device=`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from plslam_torch.config import ExtrinsicConfig, PLSlamConfig
+from plslam_torch.models.estimator import Estimator
+
+
+class ImuFeeder:
+    """`getMeasurements` pairing: feed every IMU sample strictly before
+    `t_img + td`, then ONE boundary sample linearly interpolated exactly at
+    `t_img + td` (td read live from the estimator at every frame)."""
+
+    def __init__(self, imu_t, acc, gyr):
+        self.t = np.asarray(imu_t, np.float64)
+        self.acc = np.asarray(acc, np.float64)
+        self.gyr = np.asarray(gyr, np.float64)
+        self.i = 0
+        self.prev_t = None
+        self.prev_acc = None
+        self.prev_gyr = None
+
+    def _feed(self, est, t, acc, gyr):
+        dt = (t - self.prev_t) if self.prev_t is not None else 0.005
+        est.process_imu(dt, acc, gyr)
+        self.prev_t, self.prev_acc, self.prev_gyr = t, acc, gyr
+
+    def feed_until(self, est, t_img):
+        """Feed samples up to the interpolated boundary at t_img + est.td."""
+        t_b = float(t_img) + float(est.td)
+        n = len(self.t)
+        while self.i < n and self.t[self.i] < t_b - 1e-9:
+            self._feed(est, self.t[self.i], self.acc[self.i], self.gyr[self.i])
+            self.i += 1
+        if self.i >= n:
+            return
+        t1 = self.t[self.i]
+        if t1 <= t_b + 1e-9:  # a sample lies exactly on the boundary
+            self._feed(est, t1, self.acc[self.i], self.gyr[self.i])
+            self.i += 1
+            return
+        if self.prev_t is None:
+            return  # boundary precedes the first IMU sample
+        w = (t_b - self.prev_t) / (t1 - self.prev_t)
+        acc_b = (1.0 - w) * self.prev_acc + w * self.acc[self.i]
+        gyr_b = (1.0 - w) * self.prev_gyr + w * self.gyr[self.i]
+        self._feed(est, t_b, acc_b, gyr_b)
+
+
+def _clahe(img, clip=3.0, tiles=8):
+    """Contrast-limited adaptive histogram equalization
+    (`cv::createCLAHE(3.0, 8x8)` equivalent; shared native C++ with a numpy fallback)."""
+    from plslam.io import native
+
+    out = native.clahe(img, clip, tiles)
+    if out is not None:
+        return out
+    h, w = img.shape
+    th, tw = h // tiles, w // tiles
+    luts = np.empty((tiles, tiles, 256), np.float32)
+    for i in range(tiles):
+        for j in range(tiles):
+            tile = img[i * th: (i + 1) * th, j * tw: (j + 1) * tw]
+            hist, _ = np.histogram((tile * 255).astype(np.uint8), bins=256, range=(0, 256))
+            excess = np.maximum(hist - clip * tile.size / 256, 0).sum()
+            hist = np.minimum(hist, clip * tile.size / 256) + excess / 256
+            cdf = np.cumsum(hist)
+            luts[i, j] = (cdf / cdf[-1]).astype(np.float32)
+    ys = np.clip((np.arange(h) - th / 2) / th, 0, tiles - 1.001)
+    xs = np.clip((np.arange(w) - tw / 2) / tw, 0, tiles - 1.001)
+    y0 = ys.astype(int)
+    x0 = xs.astype(int)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    y1 = np.minimum(y0 + 1, tiles - 1)
+    x1 = np.minimum(x0 + 1, tiles - 1)
+    v = (img * 255).astype(np.uint8)
+    l00 = luts[y0[:, None], x0[None, :], v]
+    l01 = luts[y0[:, None], x1[None, :], v]
+    l10 = luts[y1[:, None], x0[None, :], v]
+    l11 = luts[y1[:, None], x1[None, :], v]
+    return (l00 * (1 - fx) * (1 - fy) + l01 * fx * (1 - fy) + l10 * (1 - fx) * fy
+            + l11 * fx * fy).astype(np.float32)
+
+
+def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool = False,
+              loop_closure: bool = False, max_frames: int | None = None, progress: bool = False,
+              pipeline: bool = True, burst: int = 0, device=None):
+    """Points-only streaming pipeline on an EuRoC ASL sequence: image →
+    CLAHE → point frontend → IMU pairing → estimator.
+
+    FREQ control: the frontend tracks EVERY camera frame but publishes to the
+    estimator every `stride`-th one; tracked-only frames run pyramid + LK.
+    `pipeline=True` decodes frame k+1 on a worker thread while frame k runs
+    and defers each solve's readback to the next published frame; the
+    trajectory is identical to `pipeline=False`.
+
+    Returns (ts, ps, qs, estimator, None)."""
+    if use_lines:
+        raise NotImplementedError(
+            "run_euroc(use_lines=True): the line frontend is ROADMAP queue 1 item 11 (slice C)")
+    if loop_closure:
+        raise NotImplementedError(
+            "run_euroc(loop_closure=True): loop closure is ROADMAP queue 1 items 12-13 (slice D)")
+    if burst:
+        raise NotImplementedError(
+            "run_euroc(burst>0): offline burst replay is ROADMAP queue 1 item 14 (slice E)")
+    from plslam.io.euroc import EurocSequence
+    from plslam_torch.models.frontend_points import FrontendPoints
+    from plslam_torch.ops.cameras import make_camera
+
+    config = config or PLSlamConfig()
+    tr = config.tracker
+    if tr.fisheye and tr.fisheye_mask:
+        raise NotImplementedError("run_euroc: fisheye mask images are not ported yet")
+    seq = EurocSequence.load(seq_path)
+    est = Estimator(config, device=device)
+    fp = FrontendPoints(make_camera(config.camera), max_cnt=tr.max_cnt, min_dist=tr.min_dist,
+                        f_thresh_px=tr.f_threshold, focal=config.camera.fx,
+                        min_score=tr.min_score, fisheye=tr.fisheye, device=device)
+    stride = max(1, round(20 / tr.freq))
+    max_pub = max_frames if max_frames is not None else len(seq.cam_t)
+
+    def _load(k):
+        img = seq.image(k)
+        return _clahe(img) if tr.equalize else img
+
+    executor = pending = None
+    if pipeline:
+        from concurrent.futures import ThreadPoolExecutor
+
+        executor = ThreadPoolExecutor(max_workers=1)
+        pending = executor.submit(_load, 0)
+
+    ts_out, ps_out, qs_out = [], [], []
+    feeder = ImuFeeder(seq.imu_t, seq.imu_acc, seq.imu_gyr)
+    deferred = None
+
+    def _emit(m):
+        """Trajectory output of a published frame (one published frame later
+        in pipeline mode — `latest_pose()` finalizes the deferred solve)."""
+        est.finalize()
+        if "cost" not in m or m.get("failure") or not est.initialized:
+            return
+        tt, p, q = est.latest_pose()
+        ts_out.append(tt)
+        ps_out.append(p)
+        qs_out.append(q)
+
+    n_pub = 0
+    prev_cam_t = None
+    try:
+        for k in range(len(seq.cam_t)):
+            if n_pub >= max_pub:
+                break
+            t = float(seq.cam_t[k])
+            # restart handshake: a timestamp discontinuity resets the tracker
+            # (the estimator resets itself in process_frame)
+            if prev_cam_t is not None and (t < prev_cam_t - 1e-9 or t - prev_cam_t > 1.0):
+                fp.reset()
+            prev_cam_t = t
+            if executor is not None:
+                img = pending.result()
+                if k + 1 < len(seq.cam_t):
+                    pending = executor.submit(_load, k + 1)
+            else:
+                img = _load(k)
+            publish = k % stride == 0
+            out = fp.process(img, t, want_output=publish, light=not publish)
+            if not publish:
+                continue
+            ids, pts, vel, _ = out
+            n_pub += 1
+            if deferred is not None:
+                _emit(deferred)
+                deferred = None
+            feeder.feed_until(est, t)
+            m = est.process_frame(t, ids, pts, vel, defer_solve=pipeline)
+            if pipeline:
+                deferred = m
+            else:
+                _emit(m)
+            if progress and k % 100 == 0:
+                print(f"[{k}] t={t:.2f} init={est.initialized} pts={m.get('n_pts')}")
+        if deferred is not None:
+            _emit(deferred)  # drain the last in-flight solve
+    finally:
+        if executor is not None:
+            executor.shutdown(wait=True, cancel_futures=True)
+    return np.asarray(ts_out), np.asarray(ps_out), np.asarray(qs_out), est, None
+
+
+def run_synthetic(seq, config: PLSlamConfig | None = None, oracle_init: bool = False,
+                  use_lines: bool = True, max_frames: int | None = None, frame_stride: int = 2,
+                  progress: bool = False, drop_frames: set | None = None, device=None):
+    """Feed a synthetic sequence (ground-truth associations: a perfect
+    frontend) through the estimator. `frame_stride=2` turns the 20 Hz camera
+    stream into the reference's 10 Hz processing rate.
+    Returns (ts, ps, qs, estimator)."""
+    from plslam_torch.utils.geometry import quat_to_rot
+
+    config = config or PLSlamConfig()
+    # the estimator must use the simulator's body_T_cam, not the config default
+    R_bc = quat_to_rot(torch.as_tensor(np.asarray(seq.q_bc), dtype=torch.float64)).numpy()
+    config = dataclasses.replace(config, extrinsic=ExtrinsicConfig(
+        estimate_extrinsic=config.extrinsic.estimate_extrinsic,
+        rot=tuple(R_bc.reshape(-1).tolist()), trans=tuple(np.asarray(seq.p_bc).tolist())))
+    est = Estimator(config, device=device)
+
+    frame_t = np.asarray(seq.frame_t)[::frame_stride]
+    obs = np.asarray(seq.obs)[::frame_stride]
+    obs_valid = np.asarray(seq.obs_valid)[::frame_stride]
+    line_obs = np.asarray(seq.line_obs)[::frame_stride]
+    line_obs_valid = np.asarray(seq.line_obs_valid)[::frame_stride]
+    if max_frames is not None:
+        frame_t = frame_t[:max_frames]
+    gt_p = np.asarray(seq.gt_p)[::frame_stride]
+    gt_q = np.asarray(seq.gt_q)[::frame_stride]
+    gt_v = np.asarray(seq.gt_v)[::frame_stride]
+
+    drop_frames = drop_frames or set()
+    ts_out, ps_out, qs_out = [], [], []
+    feeder = ImuFeeder(np.asarray(seq.imu_t), np.asarray(seq.imu_acc), np.asarray(seq.imu_gyr))
+    for k, t in enumerate(frame_t):
+        if k in drop_frames:
+            continue  # dropped camera frame; IMU keeps accumulating
+        feeder.feed_until(est, t)
+        vis = np.nonzero(obs_valid[k])[0]
+        ln_ids = ln_segs = None
+        if use_lines:
+            ln_ids = np.nonzero(line_obs_valid[k])[0]
+            ln_segs = line_obs[k, ln_ids]
+        oracle = {"p": gt_p[k], "q": gt_q[k], "v": gt_v[k]} if oracle_init else None
+        m = est.process_frame(float(t), vis, obs[k, vis], None, ln_ids, ln_segs, oracle_state=oracle)
+        if progress and k % 20 == 0:
+            print(f"[{k}/{len(frame_t)}] t={t:.2f} init={est.initialized} cost={m.get('cost')}")
+        if est.initialized:
+            tt, p, q = est.latest_pose()
+            ts_out.append(tt)
+            ps_out.append(p)
+            qs_out.append(q)
+    return np.asarray(ts_out), np.asarray(ps_out), np.asarray(qs_out), est

@@ -1,0 +1,102 @@
+"""Port tests that need the card: the LK kernel against its plain version,
+the CUDA-graph LM solve against the eager one, and the synthetic runner on
+the card against the CPU. No JAX here (the machine with the card has none);
+run them there with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+
+On a host without CUDA every test skips.
+
+Tolerances: LK 1e-3 px (float32, summation order); CUDA-graph replays run
+the eager calls' kernels: states 1e-5 absolute and prior information 1e-4
+of its scale in float32 (the library may choose other reduction orders
+under capture); CPU vs card run_synthetic 1e-6 m in float64.
+"""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.set_num_threads(1)
+    return torch.device("cuda", 0)
+
+
+def test_lk_kernel_matches_plain(dev):
+    from plslam_torch.models.frontend_points import build_pyramid
+    from plslam_torch.ops.kernels import lk
+
+    rng = np.random.default_rng(0)
+    img = rng.random((240, 320)).astype(np.float32)
+    k = np.ones(7) / 7.0
+    img = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, img)
+    img = np.ascontiguousarray(np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, img),
+                               np.float32)
+    img2 = np.roll(img, (2, -3), axis=(0, 1))
+    pyr1 = build_pyramid(torch.as_tensor(img, device=dev), 3)
+    pyr2 = build_pyramid(torch.as_tensor(img2, device=dev), 3)
+    pts = torch.as_tensor(rng.uniform([2, 2], [318, 238], (64, 2)), dtype=torch.float32, device=dev)
+    for level in range(3):
+        s = 2.0 ** level
+        args = (pyr1[level], pyr2[level], pts / s, pts / s + 0.3)
+        n0 = lk.LAUNCHES
+        ko, ke = lk.lk_level(*args)
+        assert lk.LAUNCHES == n0 + 1
+        po, pe = lk.lk_level_torch(*args)
+        good = (ke < 1.0) & (pe < 1.0)
+        assert good.sum() > 20
+        assert float((ko - po)[good].abs().max()) < 1e-3
+
+
+def test_cuda_graphs_match_eager(dev):
+    """The window solve and the marginalization replayed from CUDA graphs
+    against their eager runs on the same inputs."""
+    from plslam_torch.config import PLSlamConfig, SolverConfig
+    from plslam_torch.io import synthetic
+    from plslam_torch.models import marginalization, solver
+    from plslam_torch.runner import run_synthetic
+    from plslam_torch.utils.cuda_graph import CudaGraph
+
+    seq = synthetic.make_sequence(duration=2.0, n_points=80, n_lines=16, seed=3)
+    cfg = PLSlamConfig(solver=SolverConfig(max_features=48, max_line_feats=8))
+    _, _, _, est = run_synthetic(seq, cfg, oracle_init=True, max_frames=14, device=dev)
+    st, f = est._device_state(), est._factors()
+    eager, eager_stats = solver.optimize_window(st, f, est.lay, est.cfg)
+    graph = CudaGraph(lambda s, f_: solver.optimize_window(s, f_, est.lay, est.cfg), st, f)
+    for _ in range(2):  # replays are repeatable
+        out, stats = graph(st, f)
+        for a, b in zip(out, eager):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        assert int(stats.accepted) == int(eager_stats.accepted)
+    p_eager = marginalization.marginalize_old(eager, f, est.lay, est.cfg, groups=eager_stats.groups)
+    graphs = {}
+    for _ in range(2):
+        p_graph = marginalization.marginalize_old(eager, f, est.lay, est.cfg,
+                                                  groups=eager_stats.groups, graphs=graphs)
+        H_e, H_g = p_eager.J.T @ p_eager.J, p_graph.J.T @ p_graph.J
+        torch.testing.assert_close(H_g, H_e, rtol=0, atol=1e-4 * float(H_e.abs().max()))
+    assert [k[0] for k in graphs] == ["marginalize_old"]
+    # a replay never casts or broadcasts an input that differs from the recording
+    with pytest.raises(ValueError, match="recorded"):
+        graph(st._replace(p=st.p.double()), f)
+    with pytest.raises(ValueError, match="recorded"):
+        graph(st._replace(p=st.p[:1]), f)
+
+
+def test_run_synthetic_card_matches_cpu(dev):
+    from plslam_torch.config import PLSlamConfig, SolverConfig
+    from plslam_torch.io import synthetic
+    from plslam_torch.runner import run_synthetic
+
+    seq = synthetic.make_sequence(duration=3.0, n_points=100, n_lines=16, seed=11)
+    cfg = PLSlamConfig(solver=SolverConfig(max_features=48, max_line_feats=8, dtype="float64"))
+    cpu = run_synthetic(seq, cfg, oracle_init=True, use_lines=False)
+    gpu = run_synthetic(seq, cfg, oracle_init=True, use_lines=False, device=dev)
+    assert gpu[3].initialized and len(gpu[0]) > 5
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+    np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-6)

@@ -6,19 +6,31 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure raises and exits non-zero; there is no CPU fallback):
   1. card name and power limit (nvidia-smi), torch version; CUDA required.
-  2. build the LK kernel from `plslam_torch/csrc/*.cu`; print the build time.
+  2. build every kernel of `plslam_torch/csrc/*.cu` (one nvcc per source,
+     started together, then one link); print the build time and the
+     `-Xptxas -v` lines.
   3. the LK kernel against its plain PyTorch version on the card at the main
      path's shapes (752×480 shifted texture, 4-level pyramid, 150 features):
      positions within 1e-3 px, status equal away from the err gate; times
-     per frame of both, by CUDA events after a warm-up.
-  4. render the `scripts/system_fps.py` dataset recipe with the port's
-     simulator (cached in the temp directory), then run the port's
-     `run_euroc(use_lines=False, loop_closure=False, device="cuda")` with the
-     reference capacities. Requires: initialized, ≥ 40 frames emitted, LK
-     launches = levels × tracked frames, yaw-aligned ATE < 0.4 m. Then the
-     first 24 published frames again under `torch.profiler`: the device's
-     busy share of that run and the kernels that fill it.
-  5. one JSON line of kernel results, then the last line
+     per frame of both, by CUDA events after a warm-up; the bound from the
+     pixels this run's windows cover.
+  4. the Hamming kernel against its plain version, bit-exact at 64×64 (the
+     line matcher's shape), 150×90 (ragged edges) and 1000×1000 (a
+     loop-closure size); times of both by CUDA events; the bound with
+     popcounts at their own rate.
+  5. render the `scripts/system_fps.py` dataset recipe with the port's
+     simulator (cached in the temp directory), then the main path: the
+     port's `run_euroc(use_lines=True, line_desc="binary",
+     loop_closure=False, device="cuda")` with the reference capacities.
+     Requires: initialized, ≥ 40 finite poses, LK launches = levels ×
+     tracked frames, Hamming launches = published frames, lines solved on
+     most solved frames, yaw-aligned ATE < 0.4 m. Then one line tick timed
+     by CUDA events, the points-only path over 40 published frames (LK
+     launches = levels × tracked frames, no Hamming launch), then the first
+     24 published frames of the main path under `torch.profiler`: the
+     device's busy share and the kernels that fill it, summed from the
+     profiler's raw device events.
+  6. one JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -42,10 +54,26 @@ DURATION = 12.0  # seconds of camera frames rendered
 ATE_LIMIT_M = 0.4
 LK_SOURCE = "plslam_torch/csrc/lk.cu"
 LK_REPLACES = "plslam/ops/kernels/lk.py:120"
+HAMMING_SOURCE = "plslam_torch/csrc/hamming.cu"
+HAMMING_REPLACES = "plslam/ops/kernels/hamming.py:33"
+HAMMING_SHAPES = ((64, 64), (150, 90), (1000, 1000))  # the first is the line matcher's
+POINTS_ONLY_FRAMES = 40  # published frames of the points-only run
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM bytes/s
+# and the float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# `__popc` issues 16 results per clock per SM on sm_90 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput), on 132 SMs at the 1.98 GHz boost
+# clock under which the data sheet's rates hold
+POPC_PER_S = 132 * 16 * 1.98e9
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """A line of the report, stamped with the seconds since the script began."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def card_info():
@@ -85,6 +113,70 @@ def cuda_time_ms(fn, reps=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes, n_ops, ops_per_s=OPS_PER_S):
+    """(least ms for the work, what bounds it) against the card's peaks."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / ops_per_s
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _window_pixels(shape, y0f, x0f, s):
+    """Distinct pixels of an [H,W] level that (s+1)² bilinear windows at
+    float top-lefts (y0f, x0f) read, clamped as `lk._bilinear_patch` clamps."""
+    import torch
+
+    from plslam_torch.ops.kernels.lk import _ceil
+
+    h, w = shape
+    r = torch.arange(s + 1, device=y0f.device)
+    iy = torch.clamp(torch.floor(y0f).long(), 0, _ceil(h, 8) - (s + 1))
+    ix = torch.clamp(torch.floor(x0f).long(), 0, _ceil(w, 128) - (s + 1))
+    rows = torch.clamp(iy[:, None] + r, max=h - 1)
+    cols = torch.clamp(ix[:, None] + r, max=w - 1)
+    mask = torch.zeros(shape, dtype=torch.bool, device=y0f.device)
+    mask[rows[:, :, None], cols[:, None, :]] = True
+    return int(mask.sum())
+
+
+def lk_track_bound(pyr1, pyr2, pts, iters=10):
+    """Least time of one track of `pts` through the pyramids, from this run's
+    inputs. Bytes per level: the distinct float32 pixels that the features'
+    template windows ((WIN+3)² at the point, in the previous level) and
+    search windows ((WIN+1)² at the level's result, in the current level)
+    cover — overlapping windows, and a level smaller than its windows, are
+    counted once — plus the point and guess read and position and err
+    written. Operations per level and feature: the (WIN+2)² bilinear
+    template samples (7 each), gradients and Hessian over WIN² (10 each),
+    `iters` Gauss-Newton steps over WIN² (sample, residual and two
+    multiply-adds: 12 each) and the final |I−T| (9 each)."""
+    from plslam_torch.ops.kernels import lk
+
+    win, half, n = lk.WIN, lk.HALF, pts.shape[0]
+    n_bytes, guess = 0, pts
+    for level in range(len(pyr1) - 1, -1, -1):
+        s = 2.0 ** level
+        p = pts / s
+        out, _ = lk.lk_level_torch(pyr1[level], pyr2[level], p, guess / s, iters)
+        guess = out * s
+        n_bytes += 4 * (_window_pixels(pyr1[level].shape, p[:, 1] - half - 1, p[:, 0] - half - 1,
+                                       win + 2)
+                        + _window_pixels(pyr2[level].shape, out[:, 1] - half, out[:, 0] - half, win)
+                        + n * (2 + 2 + 2 + 1))
+    n_ops = len(pyr1) * n * (7 * (win + 2) ** 2 + 10 * win ** 2 + 12 * iters * win ** 2
+                             + 9 * win ** 2)
+    log(f"  LK bound terms: {n_bytes} B ({1e3 * n_bytes / HBM_BYTES_PER_S:.6f} ms), "
+        f"{n_ops} operations ({1e3 * n_ops / OPS_PER_S:.6f} ms)")
+    return bound(n_bytes, n_ops)
+
+
+def hamming_bound(n1, n2):
+    """Least time of one [n1,8]×[n2,8] → [n1,n2] int32 distance matrix:
+    inputs read once, output written once; 8 popcounts per output at the
+    popcount rate (the xor and the add of each word go to other pipes, at
+    four times that rate each)."""
+    return bound(4 * (8 * n1 + 8 * n2 + n1 * n2), 8 * n1 * n2, POPC_PER_S)
 
 
 def check_lk_kernel(dev):
@@ -143,9 +235,39 @@ def check_lk_kernel(dev):
 
     ms = cuda_time_ms(lambda: lk.lk_track(pyr1, pyr2, pts, valid))
     plain_ms = cuda_time_ms(lambda: lk.lk_track_torch(pyr1, pyr2, pts, valid))
+    bound_ms, bound_by = lk_track_bound(pyr1, pyr2, pts)
     log(f"  time per frame ({LEVELS} levels, {N_FEATURES} features): kernel {ms:.4f} ms, "
-        f"plain torch {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+        f"plain torch {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_hamming_kernel(dev):
+    """Phase 4: kernel vs plain version on the card, bit-exact; returns the
+    row of the line matcher's shape (the first of HAMMING_SHAPES)."""
+    import torch
+
+    from plslam_torch.ops.kernels import hamming
+
+    rng = np.random.default_rng(1)
+    rows = []
+    for n1, n2 in HAMMING_SHAPES:
+        a, b = (torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32))
+                .to(dev) for n in (n1, n2))
+        k = hamming.hamming_matrix_cuda(a, b)
+        p = hamming.hamming_matrix_torch(a, b)
+        torch.cuda.synchronize()
+        err = int((k.to(torch.int64) - p).abs().max())
+        if k.dtype != torch.int32 or not torch.equal(k, p):
+            raise AssertionError(f"Hamming kernel disagrees with its plain version at {n1}×{n2}: "
+                                 f"max |Δ| {err}")
+        ms = cuda_time_ms(lambda: hamming.hamming_matrix_cuda(a, b), reps=200)
+        plain_ms = cuda_time_ms(lambda: hamming.hamming_matrix_torch(a, b))
+        bound_ms, bound_by = hamming_bound(n1, n2)
+        log(f"  {n1}×{n2}: bit-exact; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by})")
+        rows.append(dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+    return rows[0]
 
 
 TRAJECTORY = dict(omega=0.4, z_omega=0.7, wiggle_amp=0.15, excite_amp=0.1)
@@ -195,17 +317,23 @@ def smoke_config(meta):
     return PLSlamConfig(
         camera=CameraConfig(image_width=W, image_height=H, fx=F, fy=F, cx=W / 2, cy=H / 2,
                             k1=0, k2=0, p1=0, p2=0),
-        tracker=TrackerConfig(max_cnt=150, min_dist=30, equalize=True, min_score=2e-3),
-        solver=SolverConfig(max_features=192, window_size=10, max_num_iterations=8,
-                            dtype="float32", focal_length=F),
+        tracker=TrackerConfig(max_cnt=150, min_dist=30, equalize=True, min_score=2e-3,
+                              max_lines=64, line_desc="binary"),
+        solver=SolverConfig(max_features=192, max_line_feats=64, window_size=10,
+                            max_num_iterations=8, dtype="float32", focal_length=F),
         extrinsic=ExtrinsicConfig(0, tuple(meta["R_bc"].reshape(-1)), tuple(meta["p_bc"])),
         loop=LoopConfig(loop_closure=False),
     )
 
 
 def profile_short_run(dev, frames):
-    """The first `frames` published frames of phase 4 under torch.profiler:
-    the device's busy share of the wall time and the kernels that fill it."""
+    """The first `frames` published frames of the main path under
+    torch.profiler: the device's busy share of the wall time and the kernels
+    that fill it. The profiler's raw device events are summed by name here;
+    its own `key_averages()` builds an event tree first, which takes minutes
+    for the run's million events."""
+    from collections import defaultdict
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -214,56 +342,133 @@ def profile_short_run(dev, frames):
     path, _ = render_dataset()
     cfg = smoke_config(np.load(os.path.join(path, "meta.npz")))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
         t0 = time.perf_counter()
-        runner.run_euroc(path, cfg, max_frames=frames, device=dev)
+        runner.run_euroc(path, cfg, use_lines=True, loop_closure=False, max_frames=frames,
+                         device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = 1e-6 * sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
+    total_ns, count = defaultdict(int), defaultdict(int)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            total_ns[e.name()] += e.duration_ns()
+            count[e.name()] += 1
+    log(f"  profiler stopped and its events summed in {time.perf_counter() - t0 - wall:.1f} s")
+    busy_s = 1e-9 * sum(total_ns.values())
     log(f"  profiled {frames} published frames: wall {wall:.3f} s (profiler on), device busy "
-        f"{busy_s:.3f} s = {100 * busy_s / wall:.1f} %, {launches} device ops")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    for e in top[:12] + [e for e in top[12:] if "lk_level_kernel" in e.key]:
-        log(f"    {e.self_device_time_total / 1e3:9.1f} ms  {e.count:7d}×  "
-            f"{e.self_device_time_total / e.count:8.2f} µs each  {e.key[:80]}")
+        f"{busy_s:.3f} s = {100 * busy_s / wall:.1f} %, {sum(count.values())} device ops")
+    top = sorted(total_ns, key=lambda k: -total_ns[k])
+    ours = ("lk_level_kernel", "hamming_kernel")
+    for name in top[:12] + [k for k in top[12:] if any(o in k for o in ours)]:
+        log(f"    {total_ns[name] / 1e6:9.1f} ms  {count[name]:7d}×  "
+            f"{total_ns[name] / 1e3 / count[name]:8.2f} µs each  {name[:80]}")
+
+
+def _published(n_cam, max_frames=None, stride=2):
+    """(camera frames run_euroc processes, published frames among them)."""
+    n_pub = len(range(0, n_cam, stride))
+    if max_frames is None or max_frames >= n_pub:
+        return n_cam, n_pub
+    return (max_frames - 1) * stride + 1, max_frames
 
 
 def run_main_path(dev):
-    """Phase 4: the port's streaming points-only pipeline on the rendered set."""
+    """Phase 5: the port's streaming pipeline with binary lines on the
+    rendered set. Returns the launch counts of the run."""
     import torch
 
     from plslam_torch import runner
     from plslam_torch.eval.metrics import ate_rmse
-    from plslam_torch.ops.kernels import lk
+    from plslam_torch.ops.kernels import hamming, lk
 
     path, render_s = render_dataset()
     log(f"  dataset: {path} (rendered in {render_s:.1f} s)")
     meta = np.load(os.path.join(path, "meta.npz"))
     cfg = smoke_config(meta)
-    n_cam = len(os.listdir(os.path.join(path, "mav0", "cam0", "data")))
-    lk.LAUNCHES = 0
+    n_cam, n_pub = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))))
+    lk.LAUNCHES = hamming.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ts, ps, qs, est, _ = runner.run_euroc(path, cfg, use_lines=False, loop_closure=False, device=dev)
+    ts, ps, qs, est, _ = runner.run_euroc(path, cfg, use_lines=True, loop_closure=False, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lk.LAUNCHES
+    launches = {"lk_level": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
     if not est.initialized:
         raise AssertionError("the estimator did not initialize")
     if len(ts) < 40 or not np.all(np.isfinite(ps)) or np.asarray(ps).shape[1:] != (3,):
         raise AssertionError(f"expected ≥ 40 finite [3] positions, got {np.asarray(ps).shape}")
-    expected = LEVELS * (n_cam - 1)
-    if launches != expected:
-        raise AssertionError(f"LK launches {launches} != {LEVELS} levels × {n_cam - 1} tracked frames")
+    if launches["lk_level"] != LEVELS * (n_cam - 1):
+        raise AssertionError(f"LK launches {launches['lk_level']} != {LEVELS} levels × "
+                             f"{n_cam - 1} tracked frames")
+    if launches["hamming_matrix"] != n_pub:
+        raise AssertionError(f"Hamming launches {launches['hamming_matrix']} != {n_pub} published frames")
+    solved = [m for m in est.metrics if "cost" in m]
+    med_lines = float(np.median([m["n_lines"] for m in solved]))
+    if not med_lines > 0:
+        raise AssertionError(f"no lines solved on most solved frames (median n_lines {med_lines})")
     ate = float(ate_rmse(ts, ps, meta["gt_t"], meta["gt_p"], align="yaw"))
-    n_solved = sum(1 for m in est.metrics if "cost" in m)
-    log(f"  run_euroc: {n_cam} camera frames, {len(ts)} emitted, {n_solved} solved in {wall:.2f} s "
-        f"= {n_cam / wall:.2f} camera frames/s; LK launches {launches}; ATE(yaw) {ate:.4f} m")
+    log(f"  run_euroc (binary lines): {n_cam} camera frames, {n_pub} published, {len(ts)} emitted, "
+        f"{len(solved)} solved in {wall:.2f} s = {n_cam / wall:.2f} camera frames/s; "
+        f"median lines solved {med_lines:.0f}; launches {launches}; ATE(yaw) {ate:.4f} m")
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate:.4f} m ≥ {ATE_LIMIT_M} m")
-    return launches, ate, n_cam / wall
+    return launches
+
+
+def time_line_tick(dev):
+    """CUDA-event time of one line tick (binary LBD, the main path's widths)
+    on two CLAHE'd frames of the rendered set, sharing their pyramids' level
+    1 as the main path does."""
+    import torch
+
+    from plslam_torch import runner
+    from plslam_torch.io.euroc import EurocSequence
+    from plslam_torch.models.frontend_lines import FrontendLines
+    from plslam_torch.models.frontend_points import build_pyramid
+    from plslam_torch.ops.cameras import make_camera
+
+    path, _ = render_dataset()
+    cfg = smoke_config(np.load(os.path.join(path, "meta.npz")))
+    seq = EurocSequence.load(path)
+    pyrs = [build_pyramid(torch.as_tensor(runner._clahe(seq.image(k)), device=dev), 2)
+            for k in (0, 2)]
+    fl = FrontendLines(make_camera(cfg.camera), max_lines=cfg.tracker.max_lines, binary_desc=True,
+                       device=dev)
+    step = iter(range(10 ** 9))
+
+    def tick():
+        pyr = pyrs[next(step) % 2]
+        fl.process(pyr[0], 0.0, oct1=pyr[1], want_output=False)
+
+    ms = cuda_time_ms(tick, reps=20, warmup=4)
+    log(f"  line tick (752×480, 2 octaves, binary LBD, max_lines {cfg.tracker.max_lines}): "
+        f"{ms:.3f} ms per published frame")
+
+
+def run_points_only(dev, frames=POINTS_ONLY_FRAMES):
+    """The points-only path over the first `frames` published frames."""
+    import torch
+
+    from plslam_torch import runner
+    from plslam_torch.ops.kernels import hamming, lk
+
+    path, _ = render_dataset()
+    cfg = smoke_config(np.load(os.path.join(path, "meta.npz")))
+    n_cam, n_pub = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))), frames)
+    lk.LAUNCHES = hamming.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, ps, _, est, _ = runner.run_euroc(path, cfg, use_lines=False, loop_closure=False,
+                                         max_frames=frames, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(est.metrics) != n_pub or not np.all(np.isfinite(ps)):
+        raise AssertionError(f"points-only run: {len(est.metrics)} frames, expected {n_pub}")
+    if lk.LAUNCHES != LEVELS * (n_cam - 1) or hamming.LAUNCHES != 0:
+        raise AssertionError(f"points-only run: LK launches {lk.LAUNCHES} != {LEVELS} × "
+                             f"{n_cam - 1}, or Hamming launches {hamming.LAUNCHES} != 0")
+    log(f"  run_euroc (points only): {n_cam} camera frames, {n_pub} published, {len(ts)} emitted "
+        f"in {wall:.2f} s = {n_cam / wall:.2f} camera frames/s; LK launches {lk.LAUNCHES}")
 
 
 def main():
@@ -275,26 +480,35 @@ def main():
         raise RuntimeError("CUDA is not available")
     dev = torch.device("cuda", 0)
 
-    from plslam_torch.ops.kernels import lk
+    from plslam_torch.ops.kernels import _build
 
-    log("phase 2: build the LK kernel")
+    log("phase 2: build the kernels")
     t0 = time.perf_counter()
-    so = lk.build()
-    log(f"  built {os.path.relpath(so)} in {time.perf_counter() - t0:.1f} s")
+    so = _build.build()
+    log(f"  built {os.path.relpath(so)} from {len(_build.sources())} sources "
+        f"in {time.perf_counter() - t0:.1f} s")
     with open(so + ".log") as fh:
         for line in fh.read().strip().splitlines():
             log(f"  nvcc: {line}")
 
     log("phase 3: LK kernel vs plain version on the card")
-    err, ms, plain_ms = check_lk_kernel(dev)
+    lk_row = check_lk_kernel(dev)
+    log("phase 4: Hamming kernel vs plain version on the card")
+    ham_row = check_hamming_kernel(dev)
 
-    log("phase 4: run_euroc (points only) on the card")
-    launches, _, _ = run_main_path(dev)
+    log("phase 5: run_euroc on the card (binary lines, then points only)")
+    launches = run_main_path(dev)
+    time_line_tick(dev)
+    run_points_only(dev)
     profile_short_run(dev, frames=24)
 
-    print(json.dumps({"kernels": [{
-        "name": "lk_level", "route": "cuda", "source": LK_SOURCE, "replaces": LK_REPLACES,
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "lk_level", "route": "cuda", "source": LK_SOURCE, "replaces": LK_REPLACES,
+         "launches": launches["lk_level"], **lk_row, "library_ms": None},
+        {"name": "hamming_matrix", "route": "cuda", "source": HAMMING_SOURCE,
+         "replaces": HAMMING_REPLACES, "launches": launches["hamming_matrix"], **ham_row,
+         "library_ms": None},
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,15 +1,18 @@
 """plslam_torch — the PyTorch / CUDA port of plslam for one NVIDIA H100.
 
 Mirrors `plslam/`'s layout and names (`plslam_torch/utils/geometry.py` ↔
-`plslam/utils/geometry.py`, ...). It imports torch and never JAX; it shares
-only the JAX-free host modules `plslam.config` (through `plslam_torch.config`),
-`plslam.models.feature_table`, `plslam.io.euroc` and `plslam.io.native` (with
-`native/`). `utils/quat_np.py` and the ATE of `eval/metrics.py` are copies.
+`plslam/utils/geometry.py`, ...). It imports torch and never JAX, and
+shares nothing with `plslam`: the JAX-free modules it needs (`config.py`,
+`models/feature_table.py`, `io/euroc.py`, `io/native.py`,
+`utils/quat_np.py`, the ATE of `eval/metrics.py`) are its own copies.
 
-The slice ported so far is the points-only streaming EuRoC pipeline
-(`runner.run_euroc(use_lines=False, loop_closure=False)`) and the synthetic
-runner; the pyramidal LK tracker is a hand-written Hopper kernel
-(`csrc/lk.cu`, wrapper `ops/kernels/lk.py`).
+The slice ported so far is the streaming EuRoC pipeline with points and
+lines (`runner.run_euroc(loop_closure=False)`) and the synthetic runner.
+Its entry points run on the card unless given `device="cpu"`. The TPU
+kernels are hand-written Hopper kernels: the pyramidal LK tracker
+(`csrc/lk.cu`, wrapper `ops/kernels/lk.py`) and the packed-bit Hamming
+matcher of the binary line descriptors (`csrc/hamming.cu`, wrapper
+`ops/kernels/hamming.py`), built by `ops/kernels/_build.py`.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,5 +1,5 @@
 """Carry state across from the JAX package: there are no weights, so what
-moves between the two packages is solver state.
+moves between the two packages is solver state and configuration.
 
 Each function takes the JAX package's NamedTuple converted field by field
 with `np.asarray` (any object with the same field names works) and returns
@@ -8,8 +8,11 @@ to the port.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from plslam_torch.config import PLSlamConfig
 from plslam_torch.models.marginalization import Prior
 from plslam_torch.models.residuals import WindowFactors
 from plslam_torch.models.state import WindowState
@@ -34,6 +37,15 @@ def factors_from_numpy(factors, dtype=torch.float64, device=None) -> WindowFacto
 
 def prior_from_numpy(prior, dtype=torch.float64, device=None) -> Prior:
     return _convert(Prior, prior, dtype, device)
+
+
+def config_from_jax(cfg) -> PLSlamConfig:
+    """The port's `PLSlamConfig` with the values of the JAX package's one
+    (or of any dataclass tree with the same field names), field by field
+    through `dataclasses.asdict`."""
+    sections = {f.name: type(f.default) for f in dataclasses.fields(PLSlamConfig)}
+    return PLSlamConfig(**{name: sections[name](**value) if isinstance(value, dict) else value
+                           for name, value in dataclasses.asdict(cfg).items()})
 
 
 def camera_from_params(kind, params, dtype=torch.float32, device=None):

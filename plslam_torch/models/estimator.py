@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from plslam.models.feature_table import LineTable, PointTable
+from plslam_torch.models.feature_table import LineTable, PointTable
 from plslam_torch.config import PLSlamConfig
 from plslam_torch.models import marginalization as marg
 from plslam_torch.models import residuals as res
@@ -34,7 +34,7 @@ from plslam_torch.models.state import WindowState, cam_poses, layout, zero_state
 from plslam_torch.ops import imu as imu_ops
 from plslam_torch.utils import cuda_graph
 from plslam_torch.utils import quat_np as qnp
-from plslam_torch.utils.device import astensor, resolve_device
+from plslam_torch.utils.device import HostCopy, astensor, resolve_device
 from plslam_torch.utils.geometry import rot_to_quat
 
 MARGIN_OLD = 0
@@ -91,26 +91,6 @@ class ImuBuffer:
             dts[:n] = self.dt[:n]
         return (astensor(acc, dtype, device), astensor(gyr, dtype, device),
                 astensor(dts, dtype, device))
-
-
-class _Readback:
-    """A device tensor on its way to the host: the copy to pinned memory is
-    queued on the current stream and waited for only in `numpy()`."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.is_cuda:
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = t
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return np.array(self._host.numpy(), np.float64)
 
 
 def preintegrate_padded(buf: ImuBuffer, ba, bg, noise, dtype, device) -> dict:
@@ -328,7 +308,7 @@ class Estimator:
         pend, self._pending = self._pending, None
         m = pend["m"]
         self._pending_prior = pend["prior"] if pend["mode"] != "none" else None
-        m.update(self._finish_solve(pend["bundle"].numpy()))
+        m.update(self._finish_solve(np.array(pend["bundle"].get()[0], np.float64)))
         self.solves_since_init += 1
         if self._failure_detection(m):
             m["failure"] = True
@@ -465,7 +445,7 @@ class Estimator:
         st_out, stats, prior, aux = backend_tick(
             st, f, fmask(solvable), fmask(tri_need), fmask(fb4), fmask(lneed), fmask(ln_active2),
             self.lay, self.cfg, marg_mode=mode, graphs=self._graphs, **kw)
-        return _Readback(pack_bundle(st_out, stats, aux)), prior, mode
+        return HostCopy(pack_bundle(st_out, stats, aux)), prior, mode
 
     def _finish_solve(self, b: np.ndarray) -> dict:
         tbl, ltb = self.pt_table, self.ln_table

@@ -22,7 +22,7 @@ import torch
 from plslam_torch.ops.cameras import PinholeRadTan, cam_to, lift
 from plslam_torch.ops.kernels.lk import lk_track
 from plslam_torch.ops.imu import cholesky
-from plslam_torch.utils.device import resolve_device
+from plslam_torch.utils.device import HostCopy, resolve_device
 
 LK_LEVELS = 4  # cv::calcOpticalFlowPyrLK maxLevel=3 → 4 levels
 _K5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
@@ -328,11 +328,13 @@ class FrontendPoints:
             u8 = u8.pin_memory().to(self.device, non_blocking=True)
         return dev_image(u8, self.dtype)
 
-    def process(self, img, t: float, want_output: bool = True, light: bool = False, gumbel=None):
+    def process(self, img, t: float, want_output=True, light: bool = False, gumbel=None):
         """One frame tick (`FeatureTracker::readImage`). Returns
-        (ids, normalized pts, velocities, pixel uv) of valid features, or None
-        when `want_output` is False. `light=True` (tracked-only frames) runs
-        pyramid + LK only. `gumbel` optionally fixes the RANSAC draws."""
+        (ids, normalized pts, velocities, pixel uv) of valid features, a
+        `HostCopy` handle whose `get()` returns them when `want_output` is
+        "defer", or None when `want_output` is False. `light=True`
+        (tracked-only frames) runs pyramid + LK only. `gumbel` optionally
+        fixes the RANSAC draws."""
         img_d = self.upload(img)
         kw = dict(fisheye=self.fisheye, fov_mask=self._mask_img)
         if self.prev_pyr is None:
@@ -350,8 +352,12 @@ class FrontendPoints:
         self.prev_t = t
         if not want_output:
             return None
-        b = bundle[0].cpu().numpy().astype(np.float64)
-        ids = bundle[1].cpu().numpy().astype(np.int64)
+        h = HostCopy(*bundle, unpack=self._unpack)
+        return h if want_output == "defer" else h.get()
+
+    def _unpack(self, bundle: np.ndarray, ids: np.ndarray):
+        b = bundle.astype(np.float64)
+        ids = ids.astype(np.int64)
         valid = b[:, 6] > 0
         self.prev_valid = valid
         self.track_cnt = b[:, 7].astype(np.int64)

@@ -19,22 +19,14 @@ plain version, CUDA tensors the kernel (or an error — there is no fallback).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 
 import torch
+
+from plslam_torch.ops.kernels import _build
 
 WIN = 21  # patch size (cv::calcOpticalFlowPyrLK default)
 HALF = WIN // 2
 LAUNCHES = 0  # kernel launches (plain-version calls do not count)
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-                     "csrc")
-_BUILD = os.path.join(os.path.dirname(_CSRC), "_build")
-_LIB = None
-_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------- plain torch
@@ -85,54 +77,9 @@ def lk_level_torch(prev, cur, pts, guess, iters: int = 10):
 
 
 # --------------------------------------------------------------- CUDA kernel
-def _sources():
-    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cu"))
-
-
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-
-def build() -> str:
-    """Compile `csrc/*.cu` into `_build/liblk_<hash>.so` with nvcc for sm_90a,
-    once per content of the sources, nvcc path and flags; returns the
-    library path."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME); cannot build the LK kernel")
-    srcs = _sources()
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    h = hashlib.sha256("\0".join([nvcc, *_NVCC_FLAGS]).encode())
-    for s in srcs:
-        with open(s, "rb") as fh:
-            h.update(fh.read())
-    so = os.path.join(_BUILD, f"liblk_{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
-    with open(so + ".log", "w") as fh:
-        fh.write(proc.stderr)
-    return so
-
-
-def _lib():
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.plslam_lk_level_f32
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            _LIB = lib
-    return _LIB
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def _check(t, name, shape):
@@ -156,7 +103,7 @@ def lk_level_cuda(prev, cur, pts, guess, iters: int = 10):
     _check(guess, "guess", (n, 2))
     if len({t.device for t in (prev, cur, pts, guess)}) != 1:
         raise ValueError("prev, cur, pts and guess must be on one device")
-    fn = _lib().plslam_lk_level_f32
+    fn = _build.bind("plslam_lk_level_f32", _ARGTYPES)
     out = torch.empty((n, 2), dtype=torch.float32, device=pts.device)
     err = torch.empty((n,), dtype=torch.float32, device=pts.device)
     stream = torch.cuda.current_stream(pts.device).cuda_stream

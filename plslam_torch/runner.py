@@ -1,9 +1,9 @@
 """Sequence runners: drive the estimator over a dataset.
 
-Counterpart of `plslam/runner.py`. `run_euroc` is the points-only streaming
-pipeline (PNG decode + CLAHE → point frontend → IMU pairing → estimator),
+Counterpart of `plslam/runner.py`. `run_euroc` is the streaming pipeline
+(PNG decode + CLAHE → point and line frontends → IMU pairing → estimator),
 `run_synthetic` feeds simulator observations straight to the estimator.
-Every entry point takes an explicit `device=`.
+Every entry point runs on the card unless its `device=` names another.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 
 from plslam_torch.config import ExtrinsicConfig, PLSlamConfig
 from plslam_torch.models.estimator import Estimator
+from plslam_torch.utils.device import HostCopy
 
 
 class ImuFeeder:
@@ -60,7 +61,7 @@ class ImuFeeder:
 def _clahe(img, clip=3.0, tiles=8):
     """Contrast-limited adaptive histogram equalization
     (`cv::createCLAHE(3.0, 8x8)` equivalent; shared native C++ with a numpy fallback)."""
-    from plslam.io import native
+    from plslam_torch.io import native
 
     out = native.clahe(img, clip, tiles)
     if out is not None:
@@ -93,29 +94,32 @@ def _clahe(img, clip=3.0, tiles=8):
             + l11 * fx * fy).astype(np.float32)
 
 
-def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool = False,
+def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool = True,
               loop_closure: bool = False, max_frames: int | None = None, progress: bool = False,
               pipeline: bool = True, burst: int = 0, device=None):
-    """Points-only streaming pipeline on an EuRoC ASL sequence: image →
-    CLAHE → point frontend → IMU pairing → estimator.
+    """Streaming pipeline on an EuRoC ASL sequence: image → CLAHE → point
+    and line frontends → IMU pairing → estimator. Runs on the card unless
+    `device` says otherwise.
 
-    FREQ control: the frontend tracks EVERY camera frame but publishes to the
-    estimator every `stride`-th one; tracked-only frames run pyramid + LK.
+    FREQ control: the point frontend tracks EVERY camera frame but publishes
+    to the estimator every `stride`-th one; tracked-only frames run pyramid
+    + LK. The line frontend (`use_lines`, matched by binary LBD when
+    `config.tracker.line_desc == "binary"`) runs on published frames only,
+    on the point pyramid's level 0 as its image and level 1 as its second
+    octave; both frontends' bundles are read back with one wait.
     `pipeline=True` decodes frame k+1 on a worker thread while frame k runs
     and defers each solve's readback to the next published frame; the
     trajectory is identical to `pipeline=False`.
 
     Returns (ts, ps, qs, estimator, None)."""
-    if use_lines:
-        raise NotImplementedError(
-            "run_euroc(use_lines=True): the line frontend is ROADMAP queue 1 item 11 (slice C)")
     if loop_closure:
         raise NotImplementedError(
             "run_euroc(loop_closure=True): loop closure is ROADMAP queue 1 items 12-13 (slice D)")
     if burst:
         raise NotImplementedError(
             "run_euroc(burst>0): offline burst replay is ROADMAP queue 1 item 14 (slice E)")
-    from plslam.io.euroc import EurocSequence
+    from plslam_torch.io.euroc import EurocSequence
+    from plslam_torch.models.frontend_lines import FrontendLines
     from plslam_torch.models.frontend_points import FrontendPoints
     from plslam_torch.ops.cameras import make_camera
 
@@ -125,9 +129,12 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
         raise NotImplementedError("run_euroc: fisheye mask images are not ported yet")
     seq = EurocSequence.load(seq_path)
     est = Estimator(config, device=device)
-    fp = FrontendPoints(make_camera(config.camera), max_cnt=tr.max_cnt, min_dist=tr.min_dist,
+    cam = make_camera(config.camera)
+    fp = FrontendPoints(cam, max_cnt=tr.max_cnt, min_dist=tr.min_dist,
                         f_thresh_px=tr.f_threshold, focal=config.camera.fx,
-                        min_score=tr.min_score, fisheye=tr.fisheye, device=device)
+                        min_score=tr.min_score, fisheye=tr.fisheye, device=est.device)
+    f_lines = (FrontendLines(cam, max_lines=tr.max_lines, binary_desc=tr.line_desc == "binary",
+                             device=est.device) if use_lines else None)
     stride = max(1, round(20 / tr.freq))
     max_pub = max_frames if max_frames is not None else len(seq.cam_t)
 
@@ -164,10 +171,12 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             if n_pub >= max_pub:
                 break
             t = float(seq.cam_t[k])
-            # restart handshake: a timestamp discontinuity resets the tracker
+            # restart handshake: a timestamp discontinuity resets the trackers
             # (the estimator resets itself in process_frame)
             if prev_cam_t is not None and (t < prev_cam_t - 1e-9 or t - prev_cam_t > 1.0):
                 fp.reset()
+                if f_lines is not None:
+                    f_lines.reset()
             prev_cam_t = t
             if executor is not None:
                 img = pending.result()
@@ -176,22 +185,30 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             else:
                 img = _load(k)
             publish = k % stride == 0
-            out = fp.process(img, t, want_output=publish, light=not publish)
+            pts_h = fp.process(img, t, want_output="defer" if publish else False, light=not publish)
             if not publish:
                 continue
-            ids, pts, vel, _ = out
+            if f_lines is not None:
+                pyr = fp.prev_pyr
+                ln_h = f_lines.process(pyr[0], t, oct1=pyr[1] if len(pyr) > 1 else None,
+                                       want_output="defer")
+                (ids, pts, vel, _), (ln_ids, ln_segs) = HostCopy.get_joint(pts_h, ln_h)
+            else:
+                ids, pts, vel, _ = pts_h.get()
+                ln_ids = ln_segs = None
             n_pub += 1
             if deferred is not None:
                 _emit(deferred)
                 deferred = None
             feeder.feed_until(est, t)
-            m = est.process_frame(t, ids, pts, vel, defer_solve=pipeline)
+            m = est.process_frame(t, ids, pts, vel, ln_ids, ln_segs, defer_solve=pipeline)
             if pipeline:
                 deferred = m
             else:
                 _emit(m)
             if progress and k % 100 == 0:
-                print(f"[{k}] t={t:.2f} init={est.initialized} pts={m.get('n_pts')}")
+                print(f"[{k}] t={t:.2f} init={est.initialized} pts={m.get('n_pts')} "
+                      f"lines={m.get('n_lines')}")
         if deferred is not None:
             _emit(deferred)  # drain the last in-flight solve
     finally:

@@ -35,6 +35,47 @@ def astensor(x, dtype=None, device=None) -> torch.Tensor:
     return t.to(dtype=dtype or t.dtype, device=device)
 
 
+class HostCopy:
+    """Device tensors on their way to the host: each is copied to pinned
+    memory without blocking, on the current stream, and one event marks the
+    end of them all; `get()` waits for that event and returns
+    `unpack(*arrays)` (the numpy arrays themselves without `unpack`). CPU
+    tensors are taken as they are."""
+
+    def __init__(self, *tensors: torch.Tensor, unpack=None):
+        self._unpack = unpack
+        self._event = None
+        if tensors[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def get(self):
+        if self._event is not None:
+            self._event.synchronize()
+        arrays = [h.numpy() for h in self._host]
+        return self._unpack(*arrays) if self._unpack is not None else arrays
+
+    @staticmethod
+    def get_joint(*handles: "HostCopy") -> list:
+        """`get()` of several handles made in this order on one stream, with
+        one wait: the last handle's event follows every earlier copy."""
+        if handles[-1]._event is not None:
+            handles[-1]._event.synchronize()
+        return [h.get() for h in handles]
+
+
 def resolve_device(device) -> torch.device:
-    """`device=None` means the CPU; anything else is taken as given."""
-    return torch.device("cpu" if device is None else device)
+    """`device=None` means the card (`cuda`); anything else is taken as
+    given. There is no fallback: without CUDA, `None` raises, and a caller
+    that wants the CPU says `device="cpu"`."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by default; "
+                           "pass device='cpu' to run on the CPU")
+    return torch.device("cuda")

@@ -200,7 +200,8 @@ def test_try_initialize_matches_jax(seqs):
     is full, both run `try_initialize` on their buffers."""
     jseq, tseq = seqs
     cfg = _with_seq_extrinsic(jseq)
-    je, te = jest_mod.Estimator(cfg), test_mod.Estimator(cfg)
+    je = jest_mod.Estimator(cfg)
+    te = test_mod.Estimator(convert.config_from_jax(cfg), device="cpu")
     jf = JImuFeeder(np.asarray(jseq.imu_t), np.asarray(jseq.imu_acc), np.asarray(jseq.imu_gyr))
     tf = TImuFeeder(np.asarray(tseq.imu_t), np.asarray(tseq.imu_acc), np.asarray(tseq.imu_gyr))
     from plslam.models import initializer as jini
@@ -237,7 +238,8 @@ def test_milestone_a_run_synthetic(seqs):
     """`run_synthetic(oracle_init=True)` on the same `make_sequence(seed=11)`."""
     jseq, tseq = seqs
     jts, jps, _, _ = j_run_synthetic(jseq, EST_CONFIG, oracle_init=True, use_lines=True)
-    tts, tps, _, test = t_run_synthetic(tseq, EST_CONFIG, oracle_init=True, use_lines=True)
+    tts, tps, _, test = t_run_synthetic(tseq, convert.config_from_jax(EST_CONFIG), oracle_init=True,
+                                        use_lines=True, device="cpu")
     assert test.initialized and len(tts) > 15
     np.testing.assert_array_equal(tts, jts)
     np.testing.assert_allclose(tps, jps, rtol=0, atol=1e-6)

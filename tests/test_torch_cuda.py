@@ -1,5 +1,6 @@
-"""Port tests that need the card: the LK kernel against its plain version,
-the CUDA-graph LM solve against the eager one, and the synthetic runner on
+"""Port tests that need the card: the LK and Hamming kernels against their
+plain versions, the CUDA-graph LM solve against the eager one, the line
+frontend's tick and the synthetic runner (points only and with lines) on
 the card against the CPU. No JAX here (the machine with the card has none);
 run them there with
 
@@ -7,10 +8,12 @@ run them there with
 
 On a host without CUDA every test skips.
 
-Tolerances: LK 1e-3 px (float32, summation order); CUDA-graph replays run
-the eager calls' kernels: states 1e-5 absolute and prior information 1e-4
-of its scale in float32 (the library may choose other reduction orders
-under capture); CPU vs card run_synthetic 1e-6 m in float64.
+Tolerances: LK 1e-3 px (float32, summation order); Hamming distances
+exact; CUDA-graph replays run the eager calls' kernels: states 1e-5
+absolute and prior information 1e-4 of its scale in float32 (the library
+may choose other reduction orders under capture); the line tick in float64
+on both devices: ids exact, segments 1e-8 (sums in another order); CPU vs
+card run_synthetic 1e-6 m in float64.
 """
 import numpy as np
 import pytest
@@ -95,8 +98,74 @@ def test_run_synthetic_card_matches_cpu(dev):
 
     seq = synthetic.make_sequence(duration=3.0, n_points=100, n_lines=16, seed=11)
     cfg = PLSlamConfig(solver=SolverConfig(max_features=48, max_line_feats=8, dtype="float64"))
-    cpu = run_synthetic(seq, cfg, oracle_init=True, use_lines=False)
+    cpu = run_synthetic(seq, cfg, oracle_init=True, use_lines=False, device="cpu")
     gpu = run_synthetic(seq, cfg, oracle_init=True, use_lines=False, device=dev)
     assert gpu[3].initialized and len(gpu[0]) > 5
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+    np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n1,n2", [(64, 64), (150, 90), (1000, 1000)])
+def test_hamming_kernel_matches_plain(dev, n1, n2):
+    from plslam_torch.ops.kernels import hamming
+
+    rng = np.random.default_rng(n1)
+    a, b = (torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32)).to(dev)
+            for n in (n1, n2))
+    n0 = hamming.LAUNCHES
+    out = hamming.hamming_matrix(a, b)
+    assert hamming.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, hamming.hamming_matrix_torch(a, b))
+    with pytest.raises(ValueError, match="int32"):
+        hamming.hamming_matrix(a.to(torch.int64), b.to(torch.int64))
+
+
+def _line_scenes():
+    rng = np.random.default_rng(3)
+    img = np.full((240, 320), 0.25, np.float32)
+    ys, xs = np.meshgrid(np.arange(240.0), np.arange(320.0), indexing="ij")
+    for (x0, y0, x1, y1) in [(40, 40, 200, 60), (260, 30, 250, 200), (60, 180, 280, 150)]:
+        d = np.array([x1 - x0, y1 - y0], np.float64)
+        u = d / np.linalg.norm(d)
+        tproj = (xs - x0) * u[0] + (ys - y0) * u[1]
+        dperp = np.abs(-(xs - x0) * u[1] + (ys - y0) * u[0])
+        img[(tproj > 0) & (tproj < np.linalg.norm(d)) & (dperp < 1.2)] = 0.9
+    img = img + rng.standard_normal(img.shape).astype(np.float32) * 0.01
+    return img, np.roll(img, (2, 4), axis=(0, 1))
+
+
+def test_line_tick_card_matches_cpu(dev):
+    """Two binary-LBD line ticks in float64 on the card and on the CPU; the
+    card's go through the Hamming kernel once per tick."""
+    from plslam_torch.models.frontend_lines import FrontendLines
+    from plslam_torch.ops.cameras import PinholeRadTan
+    from plslam_torch.ops.kernels import hamming
+
+    cam = PinholeRadTan.create(300.0, 300.0, 160.0, 120.0, dtype=torch.float64)
+    kw = dict(max_lines=32, dtype=torch.float64, binary_desc=True)
+    on_card, on_cpu = FrontendLines(cam, device=dev, **kw), FrontendLines(cam, device="cpu", **kw)
+    for k, img in enumerate(_line_scenes()):
+        n0 = hamming.LAUNCHES
+        g = on_card.process(img, 0.05 * k)
+        assert hamming.LAUNCHES == n0 + 1
+        c = on_cpu.process(img, 0.05 * k)
+        np.testing.assert_array_equal(g[0], c[0])
+        np.testing.assert_allclose(g[1], c[1], rtol=0, atol=1e-8)
+        assert len(g[0]) >= 3
+
+
+def test_run_synthetic_lines_card_matches_cpu(dev):
+    """`run_synthetic(use_lines=True)`, CUDA graphs on (the card's default)."""
+    from plslam_torch.config import PLSlamConfig, SolverConfig
+    from plslam_torch.io import synthetic
+    from plslam_torch.runner import run_synthetic
+
+    seq = synthetic.make_sequence(duration=3.0, n_points=100, n_lines=24, seed=11)
+    cfg = PLSlamConfig(solver=SolverConfig(max_features=48, max_line_feats=16, dtype="float64"))
+    cpu = run_synthetic(seq, cfg, oracle_init=True, use_lines=True, device="cpu")
+    gpu = run_synthetic(seq, cfg, oracle_init=True, use_lines=True, device=dev)
+    assert gpu[3]._graphs and gpu[3].initialized and len(gpu[0]) > 5
+    assert max(m.get("n_lines", 0) for m in gpu[3].metrics) > 0
     np.testing.assert_array_equal(gpu[0], cpu[0])
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-6)

@@ -134,7 +134,7 @@ def test_frontend_tick_matches_jax(monkeypatch):
     img1, img2 = _pair(7, 2.2, -1.4)
     kw = dict(max_cnt=40, min_dist=24, min_score=1e-4, focal=200.0)
     jfe = jfp.FrontendPoints(JCam.create(200.0, 200.0, 160.0, 120.0), use_pallas=True, **kw)
-    tfe = tfp.FrontendPoints(TCam.create(200.0, 200.0, 160.0, 120.0), **kw)
+    tfe = tfp.FrontendPoints(TCam.create(200.0, 200.0, 160.0, 120.0), device="cpu", **kw)
     for k, img in enumerate((img1, img2)):
         gumbel = np.asarray(jax.random.gumbel(jax.random.fold_in(jfe._key, k), (100, 40),
                                               jnp.float32))

@@ -1,8 +1,9 @@
 """The port's runner on its own: the pipelined loop (decode worker thread +
 deferred solve readback) gives the same trajectory as the synchronous loop,
-the slice runs with JAX blocked (as on the machine with the card), the chip
-smoke script imports only the port, and the parts not ported yet raise a
-clear `NotImplementedError`."""
+the slice runs with JAX and the JAX package blocked (as on the machine with
+the card), neither the package nor the chip smoke script imports JAX or
+`plslam`, the entry points default to the card (and raise without one),
+and the parts not ported yet raise a clear `NotImplementedError`."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from plslam_torch.convert import config_from_jax
 from plslam_torch.runner import run_euroc
+from plslam_torch.utils.device import resolve_device
 from test_torch_slice import small_config, small_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,16 +34,15 @@ def dataset(tmp_path_factory):
 
 def test_pipeline_matches_synchronous(dataset):
     path, seq = dataset
-    cfg = small_config(seq)
-    out_p = run_euroc(str(path), cfg, pipeline=True)
-    out_s = run_euroc(str(path), cfg, pipeline=False)
+    cfg = config_from_jax(small_config(seq))
+    out_p = run_euroc(str(path), cfg, pipeline=True, device="cpu")
+    out_s = run_euroc(str(path), cfg, pipeline=False, device="cpu")
     assert out_p[3].initialized and len(out_p[0]) > 5
     for a, b in zip(out_p[:3], out_s[:3]):
         np.testing.assert_array_equal(a, b)  # bit-identical
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(use_lines=True), "item 11"),
     (dict(loop_closure=True), "items 12-13"),
     (dict(burst=16), "item 14"),
 ])
@@ -50,17 +52,29 @@ def test_run_euroc_unported_options_raise(kwargs, item):
 
 
 def test_package_has_no_jax_import():
+    """No module of the port imports JAX or the JAX package."""
     for root, _, files in os.walk(os.path.join(REPO, "plslam_torch")):
         for name in files:
             if name.endswith(".py"):
                 with open(os.path.join(root, name)) as fh:
                     src = fh.read()
-                assert "import jax" not in src and "from jax" not in src, name
+                for bad in ("import jax", "from jax", "import plslam\n", "import plslam.",
+                            "import plslam ", "from plslam."):
+                    assert bad not in src, (name, bad)
+
+
+def test_resolve_device_defaults_to_the_card():
+    """`device=None` means CUDA and raises on a host without it: no CPU fallback."""
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_chip_smoke_imports_only_the_port():
-    """`chip_smoke.py` reaches the JAX package's shared modules only through
-    `plslam_torch` (as `plslam_torch.config` does), never by itself."""
+    """`chip_smoke.py` imports the port and nothing of JAX or `plslam`."""
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         tree = ast.parse(fh.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
@@ -73,6 +87,7 @@ def test_chip_smoke_imports_only_the_port():
 _BLOCKED = """
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["plslam"] = None  # and so does any import of the JAX package
 import numpy as np, torch
 torch.set_num_threads(1)
 from plslam_torch.io import synthetic
@@ -80,16 +95,16 @@ from plslam_torch.runner import run_euroc, run_synthetic
 from plslam_torch.config import PLSlamConfig, SolverConfig
 seq = synthetic.make_sequence(duration=2.0, n_points=60, n_lines=12, seed=1)
 cfg = PLSlamConfig(solver=SolverConfig(max_features=32, max_line_feats=8, dtype="float64"))
-ts, ps, qs, est = run_synthetic(seq, cfg, oracle_init=True, max_frames=13)
+ts, ps, qs, est = run_synthetic(seq, cfg, oracle_init=True, max_frames=13, device="cpu")
 assert est.initialized and np.isfinite(ps).all() and len(ps) >= 2
 from plslam_torch.config import CameraConfig, TrackerConfig
 cfg = PLSlamConfig(
     camera=CameraConfig(image_width=320, image_height=240, fx=230.0, fy=230.0, cx=160.0, cy=120.0,
                         k1=0, k2=0, p1=0, p2=0),
-    tracker=TrackerConfig(max_cnt=80, min_dist=20, min_score=2e-3),
+    tracker=TrackerConfig(max_cnt=80, min_dist=20, min_score=2e-3, max_lines=16, line_desc="binary"),
     solver=SolverConfig(max_features=64, max_line_feats=8, dtype="float64", focal_length=230.0))
-ts, ps, qs, est, _ = run_euroc({path!r}, cfg, max_frames=4)
-assert len(est.metrics) == 4
+ts, ps, qs, est, _ = run_euroc({path!r}, cfg, max_frames=4, device="cpu")  # lines by default
+assert len(est.metrics) == 4 and est.ln_table.active.any()
 print("ran without jax")
 """
 

@@ -22,6 +22,7 @@ from plslam.io import render as jrender
 from plslam.io import synthetic as jsyn
 from plslam.ops.cameras import PinholeRadTan as JCam
 from plslam.runner import run_euroc as j_run_euroc
+from plslam_torch.convert import config_from_jax
 from plslam_torch.io import render as trender
 from plslam_torch.io import synthetic as tsyn
 from plslam_torch.ops.cameras import PinholeRadTan as TCam
@@ -94,7 +95,8 @@ def test_run_euroc_matches_jax(tmp_path):
     cfg = small_config(seq)
     gt_t, gt_p = seq.frame_t.numpy(), seq.gt_p.numpy()
     jts, jps, _, jest, _ = j_run_euroc(str(tmp_path), cfg, use_lines=False, loop_closure=False)
-    tts, tps, _, test, _ = t_run_euroc(str(tmp_path), cfg, use_lines=False, loop_closure=False)
+    tts, tps, _, test, _ = t_run_euroc(str(tmp_path), config_from_jax(cfg), use_lines=False,
+                                       loop_closure=False, device="cpu")
     assert jest.initialized and test.initialized
     assert len(tts) > 20 and len(jts) > 20
     j_ate = ate_rmse(jts, jps, gt_t, gt_p, align="yaw")

@@ -9,11 +9,15 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
   2. build every kernel of `plslam_torch/csrc/*.cu` (one nvcc per source,
      started together, then one link); print the build time and the
      `-Xptxas -v` lines.
-  3. the LK kernel against its plain PyTorch version on the card at the main
-     path's shapes (752×480 shifted texture, 4-level pyramid, 150 features):
-     positions within 1e-3 px, status equal away from the err gate; times
-     per frame of both, by CUDA events after a warm-up; the bound from the
-     pixels this run's windows cover.
+  3. the LK kernel, one launch per track (all 4 levels), in both of its
+     formulations — `fast` (the main path's, the JAX default
+     `lk_track_fast`) and `pallas` (the TPU kernel's) — against their plain
+     PyTorch versions on the card at the main path's shapes (752×480
+     shifted texture, 4-level pyramid, 150 features, six at the borders):
+     positions within 1e-3 px, status equal away from the err gate, median
+     flow error < 0.3 px; per formulation the time per track by CUDA
+     events, the device time per launch (torch.profiler), the plain
+     version's time, and the bound from the pixels its own windows cover.
   4. the Hamming kernel against its plain version, bit-exact at 64×64 (the
      line matcher's shape), 150×90 (ragged edges) and 1000×1000 (a
      loop-closure size); times of both by CUDA events; the bound with
@@ -22,13 +26,15 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      simulator (cached in the temp directory), then the main path: the
      port's `run_euroc(use_lines=True, line_desc="binary",
      loop_closure=False, device="cuda")` with the reference capacities.
-     Requires: initialized, ≥ 40 finite poses, LK launches = levels ×
-     tracked frames, Hamming launches = published frames, lines solved on
-     most solved frames, yaw-aligned ATE < 0.4 m. Then one line tick timed
-     by CUDA events, the points-only path over 40 published frames (LK
-     launches = levels × tracked frames, no Hamming launch), then the first
-     24 published frames of the main path under `torch.profiler`: the
-     device's busy share and the kernels that fill it, summed from the
+     Requires: initialized, ≥ 40 finite poses, LK launches = tracked
+     frames, Hamming launches = published frames, lines solved on most
+     solved frames, yaw-aligned ATE < 0.4 m. Then one line tick timed by
+     CUDA events, the points-only path over 40 published frames (LK
+     launches = tracked frames, no Hamming launch), `FrontendPoints` alone
+     over the first 80 camera frames with `tracker="pallas"` and then
+     `"fast"` (LK launches = tracked frames; the tracks kept by each), then
+     the first 24 published frames of the main path under `torch.profiler`:
+     the device's busy share and the kernels that fill it, summed from the
      profiler's raw device events.
   6. one JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
@@ -38,7 +44,6 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -53,11 +58,13 @@ POS_TOL_PX = 1e-3
 DURATION = 12.0  # seconds of camera frames rendered
 ATE_LIMIT_M = 0.4
 LK_SOURCE = "plslam_torch/csrc/lk.cu"
-LK_REPLACES = "plslam/ops/kernels/lk.py:120"
+LK_FAST_REPLACES = "plslam/models/frontend_points.py:253"
+LK_PALLAS_REPLACES = "plslam/ops/kernels/lk.py:120"
 HAMMING_SOURCE = "plslam_torch/csrc/hamming.cu"
 HAMMING_REPLACES = "plslam/ops/kernels/hamming.py:33"
 HAMMING_SHAPES = ((64, 64), (150, 90), (1000, 1000))  # the first is the line matcher's
 POINTS_ONLY_FRAMES = 40  # published frames of the points-only run
+FRONTEND_FRAMES = 80  # camera frames of the frontend drives (both LK formulations)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM bytes/s
 # and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -76,45 +83,6 @@ def log(msg):
     print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
-def card_info():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    return out.splitlines()[0] if out else "unknown"
-
-
-def shifted_texture(rng, h, w, dx, dy, sigma=3.0):
-    """A smooth random texture and its bilinear shift by (dx, dy)."""
-    img = rng.standard_normal((h, w))
-    k = np.exp(-0.5 * (np.arange(-7, 8) / sigma) ** 2)
-    k /= k.sum()
-    img = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, img)
-    img = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, img)
-    img = np.ascontiguousarray((img - img.min()) / (img.max() - img.min()), np.float32)
-    ys, xs = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64), indexing="ij")
-    sx = np.clip(xs - dx, 0, w - 1.001)
-    sy = np.clip(ys - dy, 0, h - 1.001)
-    x0, y0 = sx.astype(int), sy.astype(int)
-    fx, fy = sx - x0, sy - y0
-    img2 = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
-            + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
-    return img, img2.astype(np.float32)
-
-
-def cuda_time_ms(fn, reps=50, warmup=5):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound(n_bytes, n_ops, ops_per_s=OPS_PER_S):
     """(least ms for the work, what bounds it) against the card's peaks."""
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
@@ -122,9 +90,19 @@ def bound(n_bytes, n_ops, ops_per_s=OPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _window_pixels(shape, y0f, x0f, s):
-    """Distinct pixels of an [H,W] level that (s+1)² bilinear windows at
-    float top-lefts (y0f, x0f) read, clamped as `lk._bilinear_patch` clamps."""
+def _distinct_pixels(shape, rows, cols):
+    """Distinct pixels of an [H,W] level that windows cover: rows [N,a] and
+    cols [N,b] index tensors, one window a row."""
+    import torch
+
+    mask = torch.zeros(shape, dtype=torch.bool, device=rows.device)
+    mask[rows[:, :, None], cols[:, None, :]] = True
+    return int(mask.sum())
+
+
+def _pallas_windows(shape, y0f, x0f, s):
+    """(rows, cols) of the (s+1)² bilinear windows at float top-lefts
+    (y0f, x0f), clamped as `lk._bilinear_patch` clamps."""
     import torch
 
     from plslam_torch.ops.kernels.lk import _ceil
@@ -133,40 +111,60 @@ def _window_pixels(shape, y0f, x0f, s):
     r = torch.arange(s + 1, device=y0f.device)
     iy = torch.clamp(torch.floor(y0f).long(), 0, _ceil(h, 8) - (s + 1))
     ix = torch.clamp(torch.floor(x0f).long(), 0, _ceil(w, 128) - (s + 1))
-    rows = torch.clamp(iy[:, None] + r, max=h - 1)
-    cols = torch.clamp(ix[:, None] + r, max=w - 1)
-    mask = torch.zeros(shape, dtype=torch.bool, device=y0f.device)
-    mask[rows[:, :, None], cols[:, None, :]] = True
-    return int(mask.sum())
+    return torch.clamp(iy[:, None] + r, max=h - 1), torch.clamp(ix[:, None] + r, max=w - 1)
 
 
-def lk_track_bound(pyr1, pyr2, pts, iters=10):
-    """Least time of one track of `pts` through the pyramids, from this run's
-    inputs. Bytes per level: the distinct float32 pixels that the features'
-    template windows ((WIN+3)² at the point, in the previous level) and
-    search windows ((WIN+1)² at the level's result, in the current level)
-    cover — overlapping windows, and a level smaller than its windows, are
-    counted once — plus the point and guess read and position and err
-    written. Operations per level and feature: the (WIN+2)² bilinear
-    template samples (7 each), gradients and Hessian over WIN² (10 each),
-    `iters` Gauss-Newton steps over WIN² (sample, residual and two
-    multiply-adds: 12 each) and the final |I−T| (9 each)."""
+def _fast_windows(shape, tl_f, side):
+    """(rows, cols) of the side² windows at top-lefts floor(tl_f) clipped to
+    the level, as `lk.lk_track_fast_torch` cuts them."""
+    import torch
+
+    h, w = shape
+    r = torch.arange(side, device=tl_f.device)
+    tl = torch.clamp(torch.floor(tl_f).long(), min=0)
+    tl = torch.minimum(tl, torch.tensor([w - side, h - side], device=tl_f.device))
+    return tl[:, 1:2] + r, tl[:, 0:1] + r
+
+
+def lk_track_bound(pyr1, pyr2, pts, valid, formulation, iters=10):
+    """Least time of one track of `pts` through the pyramids in one launch,
+    from this run's inputs. Bytes: the points and valid flags read and the
+    positions, status and err written once, and per level the distinct
+    float32 pixels that the formulation's windows cover — overlapping
+    windows, and a level smaller than its windows, counted once. `fast`:
+    the 24×24 template windows at the point in the previous level and the
+    30×30 search windows at the level's initial guess in the current one.
+    `pallas`: the (WIN+3)² template windows in the previous level and the
+    (WIN+1)² patch windows at the level's result in the current one.
+    Operations per level and feature: the (WIN+2)² bilinear template samples
+    (7 each), gradients and Hessian over WIN² (10 each), `iters`
+    Gauss-Newton steps over WIN² (sample, residual and two multiply-adds:
+    12 each) and the final |I−T| (9 each)."""
     from plslam_torch.ops.kernels import lk
 
-    win, half, n = lk.WIN, lk.HALF, pts.shape[0]
-    n_bytes, guess = 0, pts
-    for level in range(len(pyr1) - 1, -1, -1):
+    win, half, n, levels = lk.WIN, lk.HALF, pts.shape[0], len(pyr1)
+    n_bytes, guess = n * (8 + 1 + 8 + 1 + 4), pts
+    for level in range(levels - 1, -1, -1):
         s = 2.0 ** level
         p = pts / s
-        out, _ = lk.lk_level_torch(pyr1[level], pyr2[level], p, guess / s, iters)
-        guess = out * s
-        n_bytes += 4 * (_window_pixels(pyr1[level].shape, p[:, 1] - half - 1, p[:, 0] - half - 1,
-                                       win + 2)
-                        + _window_pixels(pyr2[level].shape, out[:, 1] - half, out[:, 0] - half, win)
-                        + n * (2 + 2 + 2 + 1))
-    n_ops = len(pyr1) * n * (7 * (win + 2) ** 2 + 10 * win ** 2 + 12 * iters * win ** 2
-                             + 9 * win ** 2)
-    log(f"  LK bound terms: {n_bytes} B ({1e3 * n_bytes / HBM_BYTES_PER_S:.6f} ms), "
+        shape = tuple(pyr1[level].shape)
+        if formulation == "fast":
+            # the level's initial guess: the track through the coarser levels
+            g = p if level == levels - 1 else 2.0 * lk.lk_track_fast_torch(
+                pyr1[level + 1:], pyr2[level + 1:], pts / 2.0 ** (level + 1), valid, iters=iters)[0]
+            n_bytes += 4 * (_distinct_pixels(shape, *_fast_windows(shape, p - half - 1, lk.S_T))
+                            + _distinct_pixels(shape, *_fast_windows(
+                                shape, g - half - lk.LK_MARGIN, lk.S_C)))
+        else:
+            out, _ = lk.lk_level_torch(pyr1[level], pyr2[level], p, guess / s, iters)
+            guess = out * s
+            n_bytes += 4 * (_distinct_pixels(shape, *_pallas_windows(
+                                shape, p[:, 1] - half - 1, p[:, 0] - half - 1, win + 2))
+                            + _distinct_pixels(shape, *_pallas_windows(
+                                shape, out[:, 1] - half, out[:, 0] - half, win)))
+    n_ops = levels * n * (7 * (win + 2) ** 2 + 10 * win ** 2 + 12 * iters * win ** 2
+                          + 9 * win ** 2)
+    log(f"  LK {formulation} bound terms: {n_bytes} B ({1e3 * n_bytes / HBM_BYTES_PER_S:.6f} ms), "
         f"{n_ops} operations ({1e3 * n_ops / OPS_PER_S:.6f} ms)")
     return bound(n_bytes, n_ops)
 
@@ -180,65 +178,44 @@ def hamming_bound(n1, n2):
 
 
 def check_lk_kernel(dev):
-    """Phase 3: kernel vs plain version on the card at the main path's shapes."""
+    """Phase 3: each LK formulation's kernel against its plain version on
+    the card at the main path's shapes; returns a row per formulation."""
     import torch
 
-    from plslam_torch.models.frontend_points import build_pyramid, shi_tomasi_grid
     from plslam_torch.ops.kernels import lk
+    from plslam_torch.utils.measure import cuda_time_ms, device_us, lk_inputs
 
-    rng = np.random.default_rng(0)
-    dx, dy = 3.7, -2.3
-    img1, img2 = shifted_texture(rng, H, W, dx, dy)
-    pyr1 = build_pyramid(torch.as_tensor(img1, device=dev), levels=LEVELS)
-    pyr2 = build_pyramid(torch.as_tensor(img2, device=dev), levels=LEVELS)
-    uv, score = shi_tomasi_grid(pyr1[0], torch.zeros((1, 2), device=dev),
-                                torch.zeros((1,), device=dev), cell=30, max_out=N_FEATURES)
-    # the detector's corners plus points at every border (padding / clamp paths)
-    pts = uv.clone()
-    pts[-6:] = torch.tensor([[4.2, 120.3], [W - 3.3, 60.1], [160.5, 2.6], [200.4, H - 2.8],
-                             [11.3, 11.8], [W - 11.0, H - 10.6]], device=dev)
-    valid = torch.ones(N_FEATURES, dtype=torch.bool, device=dev)
-
-    worst = 0.0
-    for level in range(LEVELS):  # every level's launch against the plain version
-        s = 2.0 ** level
-        args = (pyr1[level], pyr2[level], pts / s, pts / s + 0.5)
-        ko, ke = lk.lk_level_cuda(*args)
-        po, pe = lk.lk_level_torch(*args)
+    pyr1, pyr2, pts, valid, (dx, dy) = lk_inputs(dev, H, W, LEVELS, N_FEATURES)
+    args = (pyr1, pyr2, pts, valid)
+    rows = {}
+    for formulation in lk.FORMULATIONS:
+        plain = lk.lk_track_fast_torch if formulation == "fast" else lk.lk_track_torch
+        k_out, k_st, _ = lk.lk_track(*args, formulation=formulation)
+        p_out, p_st, p_err = plain(*args)
         torch.cuda.synchronize()
-        good = (ke < 1e8) & (pe < 1e8) & (ke < 1.0)
-        d = (ko - po).abs().amax(dim=1)[good]
-        d = float(d.max()) if d.numel() else 0.0
-        worst = max(worst, d)
-        ms = cuda_time_ms(lambda: lk.lk_level_cuda(*args))
-        plain_ms = cuda_time_ms(lambda: lk.lk_level_torch(*args))
-        log(f"  level {level} ({tuple(pyr1[level].shape)}): max |Δpos| {d:.3e} px "
-            f"over {int(good.sum())} features; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-
-    k_out, k_st = lk.lk_track(pyr1, pyr2, pts, valid)
-    p_out, p_st = lk.lk_track_torch(pyr1, pyr2, pts, valid)
-    torch.cuda.synchronize()
-    both = k_st & p_st
-    diff = float((k_out - p_out).abs().amax(dim=1)[both].max())
-    _, err = lk.lk_level_torch(pyr1[0], pyr2[0], pts, k_out, 0)
-    near_gate = (err - ERR_GATE).abs() < 1e-4
-    status_ok = bool(torch.equal(k_st[~near_gate], p_st[~near_gate]))
-    sel = k_st[:-6]  # the detector's corners (the border points have no GT flow)
-    flow = (k_out - pts)[:-6][sel]
-    flow_err = float((flow - torch.tensor([dx, dy], device=dev)).norm(dim=1).median())
-    worst = max(worst, diff)
-    log(f"  full track: max |Δpos| {diff:.3e} px over {int(both.sum())}/{N_FEATURES} tracked; "
-        f"status equal away from the gate: {status_ok}; median flow error {flow_err:.4f} px")
-    if not (worst <= POS_TOL_PX and status_ok and flow_err < 0.3 and int(both.sum()) > 100):
-        raise AssertionError(f"LK kernel disagrees with its plain version: max |Δpos| {worst:.3e} px, "
-                             f"status equal {status_ok}, flow error {flow_err:.4f} px")
-
-    ms = cuda_time_ms(lambda: lk.lk_track(pyr1, pyr2, pts, valid))
-    plain_ms = cuda_time_ms(lambda: lk.lk_track_torch(pyr1, pyr2, pts, valid))
-    bound_ms, bound_by = lk_track_bound(pyr1, pyr2, pts)
-    log(f"  time per frame ({LEVELS} levels, {N_FEATURES} features): kernel {ms:.4f} ms, "
-        f"plain torch {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        both = k_st & p_st
+        diff = float((k_out - p_out).abs().amax(dim=1)[both].max())
+        near_gate = (p_err - ERR_GATE).abs() < 1e-4
+        status_ok = bool(torch.equal(k_st[~near_gate], p_st[~near_gate]))
+        sel = k_st[:-6]  # the detector's corners (the border points have no GT flow)
+        flow = (k_out - pts)[:-6][sel]
+        flow_err = float((flow - torch.tensor([dx, dy], device=dev)).norm(dim=1).median())
+        log(f"  {formulation}: max |Δpos| {diff:.3e} px over {int(both.sum())}/{N_FEATURES} tracked; "
+            f"status equal away from the gate: {status_ok}; median flow error {flow_err:.4f} px")
+        if not (diff <= POS_TOL_PX and status_ok and flow_err < 0.3 and int(both.sum()) > 100):
+            raise AssertionError(f"LK kernel ({formulation}) disagrees with its plain version: "
+                                 f"max |Δpos| {diff:.3e} px, status equal {status_ok}, "
+                                 f"flow error {flow_err:.4f} px")
+        ms = cuda_time_ms(lambda: lk.lk_track(*args, formulation=formulation), reps=200)
+        plain_ms = cuda_time_ms(lambda: plain(*args))
+        us = device_us(lambda: lk.lk_track(*args, formulation=formulation), "lk_track_kernel")
+        bound_ms, bound_by = lk_track_bound(pyr1, pyr2, pts, valid, formulation)
+        log(f"  {formulation} track ({LEVELS} levels, {N_FEATURES} features, one launch): "
+            f"{ms:.5f} ms by CUDA events, {us:.2f} µs device time; plain {plain_ms:.4f} ms; "
+            f"bound {bound_ms:.6f} ms ({bound_by})")
+        rows[formulation] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+    return rows
 
 
 def check_hamming_kernel(dev):
@@ -247,6 +224,7 @@ def check_hamming_kernel(dev):
     import torch
 
     from plslam_torch.ops.kernels import hamming
+    from plslam_torch.utils.measure import cuda_time_ms
 
     rng = np.random.default_rng(1)
     rows = []
@@ -358,7 +336,7 @@ def profile_short_run(dev, frames):
     log(f"  profiled {frames} published frames: wall {wall:.3f} s (profiler on), device busy "
         f"{busy_s:.3f} s = {100 * busy_s / wall:.1f} %, {sum(count.values())} device ops")
     top = sorted(total_ns, key=lambda k: -total_ns[k])
-    ours = ("lk_level_kernel", "hamming_kernel")
+    ours = ("lk_track_kernel", "hamming_kernel")
     for name in top[:12] + [k for k in top[12:] if any(o in k for o in ours)]:
         log(f"    {total_ns[name] / 1e6:9.1f} ms  {count[name]:7d}×  "
             f"{total_ns[name] / 1e3 / count[name]:8.2f} µs each  {name[:80]}")
@@ -392,14 +370,13 @@ def run_main_path(dev):
     ts, ps, qs, est, _ = runner.run_euroc(path, cfg, use_lines=True, loop_closure=False, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"lk_level": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
+    launches = {"lk_track": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
     if not est.initialized:
         raise AssertionError("the estimator did not initialize")
     if len(ts) < 40 or not np.all(np.isfinite(ps)) or np.asarray(ps).shape[1:] != (3,):
         raise AssertionError(f"expected ≥ 40 finite [3] positions, got {np.asarray(ps).shape}")
-    if launches["lk_level"] != LEVELS * (n_cam - 1):
-        raise AssertionError(f"LK launches {launches['lk_level']} != {LEVELS} levels × "
-                             f"{n_cam - 1} tracked frames")
+    if launches["lk_track"] != n_cam - 1:
+        raise AssertionError(f"LK launches {launches['lk_track']} != {n_cam - 1} tracked frames")
     if launches["hamming_matrix"] != n_pub:
         raise AssertionError(f"Hamming launches {launches['hamming_matrix']} != {n_pub} published frames")
     solved = [m for m in est.metrics if "cost" in m]
@@ -426,6 +403,7 @@ def time_line_tick(dev):
     from plslam_torch.models.frontend_lines import FrontendLines
     from plslam_torch.models.frontend_points import build_pyramid
     from plslam_torch.ops.cameras import make_camera
+    from plslam_torch.utils.measure import cuda_time_ms
 
     path, _ = render_dataset()
     cfg = smoke_config(np.load(os.path.join(path, "meta.npz")))
@@ -464,15 +442,65 @@ def run_points_only(dev, frames=POINTS_ONLY_FRAMES):
     wall = time.perf_counter() - t0
     if len(est.metrics) != n_pub or not np.all(np.isfinite(ps)):
         raise AssertionError(f"points-only run: {len(est.metrics)} frames, expected {n_pub}")
-    if lk.LAUNCHES != LEVELS * (n_cam - 1) or hamming.LAUNCHES != 0:
-        raise AssertionError(f"points-only run: LK launches {lk.LAUNCHES} != {LEVELS} × "
-                             f"{n_cam - 1}, or Hamming launches {hamming.LAUNCHES} != 0")
+    if lk.LAUNCHES != n_cam - 1 or hamming.LAUNCHES != 0:
+        raise AssertionError(f"points-only run: LK launches {lk.LAUNCHES} != {n_cam - 1} tracked "
+                             f"frames, or Hamming launches {hamming.LAUNCHES} != 0")
     log(f"  run_euroc (points only): {n_cam} camera frames, {n_pub} published, {len(ts)} emitted "
         f"in {wall:.2f} s = {n_cam / wall:.2f} camera frames/s; LK launches {lk.LAUNCHES}")
 
 
+def drive_frontend(dev, tracker, frames=FRONTEND_FRAMES):
+    """`FrontendPoints(tracker=...)` alone over the first `frames` camera
+    frames of the rendered set (CLAHE'd before the drive), a `tick` on every
+    second frame and a `tick_light` between, as `run_euroc` drives it.
+    Returns (LK launches, tracked frames, tracks kept: the features of the
+    published frames that continue a track from the previous frame)."""
+    import torch
+
+    from plslam_torch import runner
+    from plslam_torch.io.euroc import EurocSequence
+    from plslam_torch.models.frontend_points import FrontendPoints
+    from plslam_torch.ops.cameras import make_camera
+    from plslam_torch.ops.kernels import lk
+
+    path, _ = render_dataset()
+    cfg = smoke_config(np.load(os.path.join(path, "meta.npz")))
+    tr = cfg.tracker
+    seq = EurocSequence.load(path)
+    imgs = [runner._clahe(seq.image(k)) for k in range(frames)]
+    fp = FrontendPoints(make_camera(cfg.camera), max_cnt=tr.max_cnt, min_dist=tr.min_dist,
+                        f_thresh_px=tr.f_threshold, focal=cfg.camera.fx, min_score=tr.min_score,
+                        device=dev, tracker=tracker)
+    stride = max(1, round(20 / tr.freq))
+    kept = 0
+    lk.LAUNCHES = 0
+    for k, img in enumerate(imgs):
+        publish = k % stride == 0
+        if fp.process(img, float(seq.cam_t[k]), want_output=publish, light=not publish) and k:
+            kept += int((fp.track_cnt[fp.prev_valid] >= 2).sum())
+    torch.cuda.synchronize()
+    return lk.LAUNCHES, frames - 1, kept
+
+
+def drive_frontends(dev):
+    """Phase 5's frontend drives: the `pallas` formulation, which no
+    `run_euroc` path takes, and the main path's `fast` on the same frames.
+    Returns the `pallas` drive's LK launches."""
+    drives = {tracker: drive_frontend(dev, tracker) for tracker in ("pallas", "fast")}
+    for tracker, (launches, tracked, kept) in drives.items():
+        if launches != tracked:
+            raise AssertionError(f"frontend drive ({tracker}): LK launches {launches} != "
+                                 f"{tracked} tracked frames")
+    log(f"  FrontendPoints over {FRONTEND_FRAMES} camera frames: LK launches "
+        f"{drives['pallas'][0]} (pallas), {drives['fast'][0]} (fast); tracks kept on the "
+        f"published frames {drives['pallas'][2]} (pallas), {drives['fast'][2]} (fast)")
+    return drives["pallas"][0]
+
+
 def main():
     import torch
+
+    from plslam_torch.utils.measure import card_info
 
     log(card_info())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -491,8 +519,8 @@ def main():
         for line in fh.read().strip().splitlines():
             log(f"  nvcc: {line}")
 
-    log("phase 3: LK kernel vs plain version on the card")
-    lk_row = check_lk_kernel(dev)
+    log("phase 3: LK kernel (both formulations) vs plain versions on the card")
+    lk_rows = check_lk_kernel(dev)
     log("phase 4: Hamming kernel vs plain version on the card")
     ham_row = check_hamming_kernel(dev)
 
@@ -500,11 +528,15 @@ def main():
     launches = run_main_path(dev)
     time_line_tick(dev)
     run_points_only(dev)
+    pallas_launches = drive_frontends(dev)
     profile_short_run(dev, frames=24)
 
     print(json.dumps({"kernels": [
-        {"name": "lk_level", "route": "cuda", "source": LK_SOURCE, "replaces": LK_REPLACES,
-         "launches": launches["lk_level"], **lk_row, "library_ms": None},
+        {"name": "lk_track fast", "route": "cuda", "source": LK_SOURCE, "replaces": LK_FAST_REPLACES,
+         "launches": launches["lk_track"], **lk_rows["fast"], "library_ms": None},
+        {"name": "lk_track pallas", "route": "cuda", "source": LK_SOURCE,
+         "replaces": LK_PALLAS_REPLACES, "launches": pallas_launches, **lk_rows["pallas"],
+         "library_ms": None},
         {"name": "hamming_matrix", "route": "cuda", "source": HAMMING_SOURCE,
          "replaces": HAMMING_REPLACES, "launches": launches["hamming_matrix"], **ham_row,
          "library_ms": None},

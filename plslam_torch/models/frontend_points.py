@@ -8,9 +8,13 @@ Counterpart of `plslam/models/frontend_points.py` (the reference's
 device; a published frame reads back one packed bundle.
 
 Tracking goes through `plslam_torch.ops.kernels.lk.lk_track`: the hand
-Hopper kernel on a CUDA device, its plain version on the CPU. (The JAX
-package's default `lk_track_fast` is a one-hot-matmul formulation that only
-exists to feed the TPU's matrix unit; it is not ported.)
+Hopper kernel on a CUDA device (one launch per frame, all levels), its
+plain version on the CPU. `FrontendPoints(tracker=...)` picks the
+formulation: `"fast"` (the default) is the JAX package's default tracker
+`lk_track_fast`, `"pallas"` its Pallas kernel `lk_track_pallas` — the
+counterparts of the JAX `use_pallas=False` / `True`. Only `lk_track_fast`'s
+one-hot-matmul form, which feeds the TPU's matrix unit, is not ported: the
+port samples its windows directly.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from plslam_torch.ops.cameras import PinholeRadTan, cam_to, lift
-from plslam_torch.ops.kernels.lk import lk_track
+from plslam_torch.ops.kernels.lk import FORMULATIONS, lk_track
 from plslam_torch.ops.imu import cholesky
 from plslam_torch.utils.device import HostCopy, resolve_device
 
@@ -232,13 +236,13 @@ def det_prog(cam, img, min_score, cell: int, N: int, fisheye=False, fov_mask=Non
 
 
 def tick(cam, pyr_prev, img_new, state, f_thresh, dt, min_score, cell: int, N: int,
-         generator=None, gumbel=None, fisheye=False, fov_mask=None):
+         generator=None, gumbel=None, fisheye=False, fov_mask=None, tracker: str = "fast"):
     """Published frame: pyramid, LK, F-RANSAC, Shi-Tomasi refill, lift and
     velocity. Returns (pyr_new, state_new, bundle)."""
     dtype = img_new.dtype
     uv0, valid0, norm0, ids0, cnt0, next_id = state
     pyr_new = build_pyramid(img_new, levels=len(pyr_prev))
-    track_uv, status = lk_track(pyr_prev, pyr_new, uv0, valid0)
+    track_uv, status, _ = lk_track(pyr_prev, pyr_new, uv0, valid0, formulation=tracker)
     ok = status & valid0
     if fisheye:
         ok = ok & _in_fov(track_uv, img_new.shape, fov_mask)
@@ -270,11 +274,12 @@ def tick(cam, pyr_prev, img_new, state, f_thresh, dt, min_score, cell: int, N: i
     return pyr_new, state1, _pack(uv1, norm1, vel, valid1, ids1, cnt1)
 
 
-def tick_light(cam, pyr_prev, img_new, state, fisheye=False, fov_mask=None):
+def tick_light(cam, pyr_prev, img_new, state, fisheye=False, fov_mask=None,
+               tracker: str = "fast"):
     """Tracked-only (non-published) frame: pyramid + LK + track upkeep."""
     uv0, valid0, norm0, ids0, cnt0, next_id = state
     pyr_new = build_pyramid(img_new, levels=len(pyr_prev))
-    track_uv, status = lk_track(pyr_prev, pyr_new, uv0, valid0)
+    track_uv, status, _ = lk_track(pyr_prev, pyr_new, uv0, valid0, formulation=tracker)
     ok = status & valid0
     if fisheye:
         ok = ok & _in_fov(track_uv, img_new.shape, fov_mask)
@@ -288,11 +293,17 @@ def tick_light(cam, pyr_prev, img_new, state, fisheye=False, fov_mask=None):
 class FrontendPoints:
     """Host orchestration (`FeatureTracker` equivalent). Slot state and the
     previous pyramid live on `device`; `process` reads back one bundle on a
-    published frame and nothing on a tracked-only one."""
+    published frame and nothing on a tracked-only one. `tracker` is the LK
+    formulation: `"fast"` (default; the JAX `use_pallas=False`, its
+    `lk_track_fast`) or `"pallas"` (the JAX `use_pallas=True`, its
+    `lk_track_pallas`)."""
 
     def __init__(self, cam: PinholeRadTan, max_cnt=150, min_dist=30, f_thresh_px=1.0,
                  focal=460.0, dtype=torch.float32, min_score=1e-4, fisheye: bool = False,
-                 fisheye_mask=None, device=None, seed: int = 7):
+                 fisheye_mask=None, device=None, seed: int = 7, tracker: str = "fast"):
+        if tracker not in FORMULATIONS:
+            raise ValueError(f"FrontendPoints: tracker must be one of {FORMULATIONS}, got {tracker!r}")
+        self.tracker = tracker
         self.device = resolve_device(device)
         self.dtype = dtype
         self.cam = cam_to(cam, dtype, self.device)
@@ -341,14 +352,16 @@ class FrontendPoints:
             self.prev_pyr, self._state, bundle = det_prog(
                 self.cam, img_d, self.min_score, self.min_dist, self.max_cnt, **kw)
         elif light and not want_output:
-            self.prev_pyr, self._state = tick_light(self.cam, self.prev_pyr, img_d, self._state, **kw)
+            self.prev_pyr, self._state = tick_light(self.cam, self.prev_pyr, img_d, self._state,
+                                                    tracker=self.tracker, **kw)
             self.prev_t = t
             return None
         else:
             dt = (t - self.prev_t) if self.prev_t is not None else 0.0
             self.prev_pyr, self._state, bundle = tick(
                 self.cam, self.prev_pyr, img_d, self._state, self.f_thresh, dt, self.min_score,
-                self.min_dist, self.max_cnt, generator=self.generator, gumbel=gumbel, **kw)
+                self.min_dist, self.max_cnt, generator=self.generator, gumbel=gumbel,
+                tracker=self.tracker, **kw)
         self.prev_t = t
         if not want_output:
             return None

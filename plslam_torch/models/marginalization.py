@@ -53,14 +53,24 @@ def _shift_perm(lay: TangentLayout):
     return perm
 
 
+def _eigh_sym(M):
+    """eigh of the symmetric part of M, decomposed in float64 and cast back.
+    MKL's float32 `ssyevd` fails to converge on some Jacobi-scaled,
+    rank-deficient marginalization matrices (zero rows of unobserved slots)
+    where the JAX package's float32 `eigh` returns; these matrices are at
+    most a few hundred wide, so one code path in float64 costs little."""
+    w, V = torch.linalg.eigh((0.5 * (M + M.transpose(-1, -2))).to(torch.float64))
+    return w.to(M.dtype), V.to(M.dtype)
+
+
 def _pinv_psd(M, eps):
-    w, V = torch.linalg.eigh(0.5 * (M + M.transpose(-1, -2)))
+    w, V = _eigh_sym(M)
     w_inv = torch.where(w > eps, 1.0 / torch.clamp(w, min=eps), torch.zeros_like(w))
     return (V * w_inv[..., None, :]) @ V.transpose(-1, -2)
 
 
 def _sqrt_refactor(H, b, eps):
-    w, V = torch.linalg.eigh(0.5 * (H + H.T))
+    w, V = _eigh_sym(H)
     ok = w > eps
     s = torch.where(ok, torch.sqrt(torch.clamp(w, min=eps)), torch.zeros_like(w))
     s_inv = torch.where(ok, 1.0 / torch.clamp(s, min=float(np.sqrt(eps))), torch.zeros_like(w))

@@ -11,15 +11,17 @@ field by field into `plslam.config`). `--jax-tracker` picks its point
 tracker: `fast`, its default `lk_track_fast`; `per-feature`, its `lk_track`
 (the Pallas kernel's formulation but for the det gate, which `lk_track`
 applies at every level); or `pallas`, the Pallas kernel itself in
-interpret mode, which is what the port's CUDA kernel computes (slow).
-`--package port` runs `plslam_torch` on `--device` and imports nothing of
-JAX. `--seed` sets the point frontend's F-RANSAC seed (7 in both packages
-by default; their random streams differ).
+interpret mode (slow). `--package port` runs `plslam_torch` on `--device`
+and imports nothing of JAX; `--port-tracker` picks its point tracker's
+formulation: `fast` (its default, the JAX `lk_track_fast`) or `pallas` (the
+JAX Pallas kernel's). `--seed` sets the point frontend's F-RANSAC seed (7
+in both packages by default; their random streams differ).
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python3 scripts/smoke_ate.py --package jax points binary
     python3 scripts/smoke_ate.py --package port --device cuda --dtype float64 binary
+    python3 scripts/smoke_ate.py --package port --device cuda --port-tracker pallas binary
 
 Prints one line per run and a JSON line of the results.
 """
@@ -57,15 +59,15 @@ def _with_init(cls, **kw):
     cls.__init__ = patched
 
 
-def runner(package, device, dtype, jax_tracker="fast", seed=None):
+def runner(package, device, dtype, jax_tracker="fast", seed=None, port_tracker="fast"):
     """(run_euroc taking the port's config, ate_rmse) of the package."""
     if package == "port":
         from plslam_torch.eval.metrics import ate_rmse
         from plslam_torch.models.frontend_points import FrontendPoints
         from plslam_torch.runner import run_euroc
 
-        if seed is not None:
-            _with_init(FrontendPoints, seed=seed)
+        _with_init(FrontendPoints, tracker=port_tracker,
+                   **({} if seed is None else {"seed": seed}))
         return (lambda path, cfg, **kw: run_euroc(path, cfg, device=device, **kw)), ate_rmse
     import jax
 
@@ -101,11 +103,13 @@ def main():
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--jax-tracker", choices=("fast", "per-feature", "pallas"), default="fast")
+    ap.add_argument("--port-tracker", choices=("fast", "pallas"), default="fast")
     ap.add_argument("--seed", type=int, default=None, help="the point frontend's RANSAC seed")
     ap.add_argument("modes", nargs="*", choices=("points", "binary", "float"),
                     default=["points", "binary"])
     args = ap.parse_args()
-    run_euroc, ate_rmse = runner(args.package, args.device, args.dtype, args.jax_tracker, args.seed)
+    run_euroc, ate_rmse = runner(args.package, args.device, args.dtype, args.jax_tracker, args.seed,
+                                 args.port_tracker)
 
     path, render_s = chip_smoke.render_dataset()
     print(f"dataset {path} (rendered in {render_s:.1f} s)", flush=True)
@@ -125,7 +129,9 @@ def main():
         results[mode] = dict(initialized=bool(est.initialized), emitted=len(ts),
                              solved=len(solved), median_lines=med_lines, ate_m=ate,
                              wall_s=wall)
-        where = args.device if args.package == "port" else f"cpu, tracker {args.jax_tracker}"
+        where = (f"{args.device}, tracker {args.port_tracker}"
+                 if args.package == "port"
+                 else f"cpu, tracker {args.jax_tracker}")
         where += "" if args.seed is None else f", seed {args.seed}"
         print(f"{args.package} ({where}) {args.dtype} "
               f"{mode}: initialized {est.initialized}, {len(ts)} emitted, {len(solved)} solved, "

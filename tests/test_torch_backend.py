@@ -120,6 +120,43 @@ def test_marginalization_matches_jax(window):
                    jmarg.marginalize_second_new(st0, f2, LAY, CFG))
 
 
+def _rank_deficient_scaled(seed, n=163, zero=87):
+    """A float32 PSD matrix shaped like the marginalization matrix on which
+    MKL's float32 `eigh` failed to converge in a 320×240 float32 run with
+    lines: 163×163, Jacobi-scaled (unit diagonal, |H| ≤ 1), rank-deficient,
+    with 87 all-zero rows and columns (unobserved slots); and a right-hand
+    side."""
+    rng = np.random.default_rng(seed)
+    k = n - zero
+    A = rng.standard_normal((k, k // 2))
+    B = A @ A.T
+    d = np.sqrt(np.diag(B))
+    M = np.zeros((n, n))
+    idx = np.sort(rng.choice(n, k, replace=False))
+    M[np.ix_(idx, idx)] = B / d[:, None] / d[None, :]
+    return M.astype(np.float32), rng.standard_normal(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [5, 25])
+def test_float32_eigh_returns_where_jax_does(seed):
+    """`_pinv_psd` and `_sqrt_refactor` in float32 on matrices where MKL's
+    float32 `ssyevd` raises "failed to converge" and the JAX package's
+    float32 `eigh` returns: the port's results match JAX's within 1e-5 of
+    their scale (both float32; ~1e-6 seen)."""
+    from plslam_torch.config import SolverConfig as TSolverConfig
+
+    M, b = _rank_deficient_scaled(seed)
+    eps = tmarg._eps(TSolverConfig(), torch.float32)
+    jP = np.asarray(jmarg._pinv_psd(jnp.asarray(M), eps))
+    tP = tmarg._pinv_psd(torch.as_tensor(M), eps)
+    assert tP.dtype == torch.float32
+    np.testing.assert_allclose(tP.numpy(), jP, rtol=0, atol=1e-5 * np.abs(jP).max())
+    jJ, jr = (np.asarray(x) for x in jmarg._sqrt_refactor(jnp.asarray(M), jnp.asarray(b), eps))
+    tJ, tr = (x.numpy() for x in tmarg._sqrt_refactor(torch.as_tensor(M), torch.as_tensor(b), eps))
+    for a, c in ((tJ.T @ tJ, jJ.T @ jJ), (tJ.T @ tr, jJ.T @ jr)):
+        np.testing.assert_allclose(a, c, rtol=0, atol=1e-5 * np.abs(c).max())
+
+
 # ---------------------------------------------------------------- estimator
 EST_CONFIG = PLSlamConfig(solver=SolverConfig(max_features=64, max_line_feats=16, dtype="float64"))
 

@@ -8,8 +8,8 @@ run them there with
 
 On a host without CUDA every test skips.
 
-Tolerances: LK 1e-3 px (float32, summation order); Hamming distances
-exact; CUDA-graph replays run the eager calls' kernels: states 1e-5
+Tolerances: LK 1e-3 px, both formulations (float32, summation order);
+Hamming distances exact; CUDA-graph replays run the eager calls' kernels: states 1e-5
 absolute and prior information 1e-4 of its scale in float32 (the library
 may choose other reduction orders under capture); the line tick in float64
 on both devices: ids exact, segments 1e-8 (sums in another order); CPU vs
@@ -30,12 +30,19 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def test_lk_kernel_matches_plain(dev):
+@pytest.mark.parametrize("formulation,h,w", [("fast", 240, 320), ("pallas", 240, 320),
+                                              ("pallas", 100, 160)])
+def test_lk_kernel_matches_plain(dev, formulation, h, w):
+    """One launch tracks all levels; positions 1e-3 px where both track,
+    status equal away from the err gate. At 100×160 the coarsest level
+    (25×40) is smaller than `fast`'s 30×30 search window: `pallas`, which
+    has no window, tracks there as its plain version and the JAX Pallas
+    kernel do, and `fast` refuses the pyramid on both devices."""
     from plslam_torch.models.frontend_points import build_pyramid
     from plslam_torch.ops.kernels import lk
 
     rng = np.random.default_rng(0)
-    img = rng.random((240, 320)).astype(np.float32)
+    img = rng.random((h, w)).astype(np.float32)
     k = np.ones(7) / 7.0
     img = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, img)
     img = np.ascontiguousarray(np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, img),
@@ -43,17 +50,25 @@ def test_lk_kernel_matches_plain(dev):
     img2 = np.roll(img, (2, -3), axis=(0, 1))
     pyr1 = build_pyramid(torch.as_tensor(img, device=dev), 3)
     pyr2 = build_pyramid(torch.as_tensor(img2, device=dev), 3)
-    pts = torch.as_tensor(rng.uniform([2, 2], [318, 238], (64, 2)), dtype=torch.float32, device=dev)
-    for level in range(3):
-        s = 2.0 ** level
-        args = (pyr1[level], pyr2[level], pts / s, pts / s + 0.3)
-        n0 = lk.LAUNCHES
-        ko, ke = lk.lk_level(*args)
-        assert lk.LAUNCHES == n0 + 1
-        po, pe = lk.lk_level_torch(*args)
-        good = (ke < 1.0) & (pe < 1.0)
-        assert good.sum() > 20
-        assert float((ko - po)[good].abs().max()) < 1e-3
+    pts = torch.as_tensor(rng.uniform([2, 2], [w - 2, h - 2], (64, 2)), dtype=torch.float32,
+                          device=dev)
+    valid = torch.ones(64, dtype=torch.bool, device=dev)
+    n0 = lk.LAUNCHES
+    ko, ks, ke = lk.lk_track(pyr1, pyr2, pts, valid, formulation=formulation)
+    assert lk.LAUNCHES == n0 + 1
+    plain = lk.lk_track_fast_torch if formulation == "fast" else lk.lk_track_torch
+    po, ps, pe = plain(pyr1, pyr2, pts, valid)
+    torch.cuda.synchronize()
+    both = ks & ps
+    assert both.sum() > 20
+    assert float((ko - po)[both].abs().max()) < 1e-3
+    near_gate = (pe - 0.12).abs() < 1e-4
+    assert torch.equal(ks[~near_gate], ps[~near_gate])
+    if min(pyr1[-1].shape) < lk.S_C:
+        for args in ((pyr1, pyr2, pts, valid),
+                     ([p.cpu() for p in pyr1], [p.cpu() for p in pyr2], pts.cpu(), valid.cpu())):
+            with pytest.raises(ValueError, match="search window"):
+                lk.lk_track(*args, formulation="fast")
 
 
 def test_cuda_graphs_match_eager(dev):

@@ -1,13 +1,16 @@
-"""Port parity, point frontend: the plain LK (the CPU side of the Hopper LK
-kernel) against the Pallas kernel in interpret mode, the pyramid,
-Shi-Tomasi detection, F-RANSAC on shared Gumbel draws, and one whole
-`FrontendPoints` tick — `plslam_torch` against `plslam`.
+"""Port parity, point frontend: the plain LK versions (the CPU side of the
+Hopper LK kernel) against the JAX trackers — the `"fast"` formulation
+against `lk_track_fast` (the JAX default), the `"pallas"` one against the
+Pallas kernel in interpret mode — the pyramid, Shi-Tomasi detection,
+F-RANSAC on shared Gumbel draws, and whole `FrontendPoints` ticks with
+either tracker — `plslam_torch` against `plslam`.
 
 Tolerances:
   * LK positions 1e-3 px where both trackers report status true; status
     identical except where err lies within 1e-4 of the 0.12 gate. Both run
     the same float32 bilinear / Gauss-Newton arithmetic, summed in another
-    order.
+    order (`lk_track_fast` blends through one-hot matmuls, the port
+    directly from the window).
   * pyramid 1e-6 absolute on [0,1] images, Shi-Tomasi scores 1e-6 (float32
     matmul / box-filter summation order); detected corners and the RANSAC
     inlier mask exact.
@@ -67,37 +70,64 @@ def test_shi_tomasi_matches_jax():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("seed,dx,dy", [(3, 3.7, -2.3), (5, 2.6, 3.1)])
-def test_lk_plain_matches_pallas(seed, dx, dy):
-    """On the shifted-texture fixtures of test_kernels, with features near
-    every border (where the (8,128) padding and top-left clamp matter)."""
+BORDER = np.array([[4.2, 120.3], [316.7, 60.1], [160.5, 2.6], [200.4, 237.2],
+                   [11.3, 11.8], [309.1, 229.4]], np.float32)
+
+
+def _lk_case(seed, dx, dy):
+    """The shifted-texture pair, both packages' pyramids, and the detector's
+    corners followed by points near every border."""
     img1, img2 = _pair(seed, dx, dy)
     jp, tp = _pyramids(img1, img2)
     uv, score = jfp.shi_tomasi_grid(jnp.asarray(img1), jnp.zeros((1, 2), jnp.float32),
                                     jnp.zeros((1,), jnp.float32), cell=24, max_out=40)
     uv = np.asarray(uv)[np.asarray(score) > 1e-5][:24]
-    border = np.array([[4.2, 120.3], [316.7, 60.1], [160.5, 2.6], [200.4, 237.2],
-                       [11.3, 11.8], [309.1, 229.4]], np.float32)
-    pts = np.concatenate([uv, border]).astype(np.float32)
-    valid = np.ones(len(pts), bool)
+    pts = np.concatenate([uv, BORDER]).astype(np.float32)
+    return jp, tp, uv, pts, np.ones(len(pts), bool)
 
-    j_out, j_st = jlk.lk_track_pallas(jp[0], jp[1], jnp.asarray(pts), jnp.asarray(valid),
-                                      interpret=True)
-    t_out, t_st = tlk.lk_track(tp[0], tp[1], torch.as_tensor(pts), torch.as_tensor(valid))
-    j_out, j_st, t_out, t_st = np.asarray(j_out), np.asarray(j_st), t_out.numpy(), t_st.numpy()
 
+def _check_lk(j, t, t_err, uv, dx, dy, min_tracked=0.7):
+    """Positions 1e-3 px where both track, status equal away from the err
+    gate, and the existing bar of test_kernels: the GT flow is recovered."""
+    (j_out, j_st), (t_out, t_st) = ((np.asarray(a), np.asarray(b)) for a, b in (j, t))
     both = j_st & t_st
     np.testing.assert_allclose(t_out[both], j_out[both], rtol=0, atol=1e-3)
-    # the last level's err, for the status comparison near the gate
-    _, err = tlk.lk_level_torch(tp[0][0], tp[1][0], torch.as_tensor(pts),
-                                torch.as_tensor(t_out), iters=0)
-    near_gate = np.abs(err.numpy() - ERR_GATE) < 1e-4
+    near_gate = np.abs(np.asarray(t_err) - ERR_GATE) < 1e-4
     np.testing.assert_array_equal(t_st[~near_gate], j_st[~near_gate])
-    # the existing bar of test_kernels: the GT flow is recovered
     sel = t_st[: len(uv)]
     flow = t_out[: len(uv)][sel] - uv[sel]
-    assert sel.sum() >= len(uv) * 0.7
+    assert sel.sum() >= len(uv) * min_tracked
     assert np.median(np.linalg.norm(flow - np.array([dx, dy]), axis=1)) < 0.3
+
+
+@pytest.mark.parametrize("seed,dx,dy", [(3, 3.7, -2.3), (5, 2.6, 3.1)])
+def test_lk_plain_matches_pallas(seed, dx, dy):
+    """The `"pallas"` formulation on the shifted-texture fixtures of
+    test_kernels, with features near every border (where the (8,128)
+    padding and top-left clamp matter)."""
+    jp, tp, uv, pts, valid = _lk_case(seed, dx, dy)
+    j = jlk.lk_track_pallas(jp[0], jp[1], jnp.asarray(pts), jnp.asarray(valid), interpret=True)
+    t_out, t_st, t_err = tlk.lk_track(tp[0], tp[1], torch.as_tensor(pts), torch.as_tensor(valid),
+                                      formulation="pallas")
+    _check_lk(j, (t_out, t_st), t_err, uv, dx, dy)
+
+
+@pytest.mark.parametrize("seed,dx,dy", [(3, 3.7, -2.3), (5, 2.6, 3.1), (9, 16.6, -3.1)])
+def test_lk_fast_plain_matches_jax(seed, dx, dy):
+    """`lk_track`'s default, the `"fast"` formulation, against the JAX
+    default `lk_track_fast` on the same fixtures. The border points start
+    outside their clipped search windows, so the guess is clamped to
+    [lo, hi]; the third case moves 16.6 px, more than the coarsest level's
+    window lets the guess move (LK_MARGIN px at scale 4), so the clamp binds
+    there and the finer levels take the rest. Features that the shift
+    carries across the image edge are lost in both packages there (14 of
+    24 tracked), so that case asks half of them."""
+    jp, tp, uv, pts, valid = _lk_case(seed, dx, dy)
+    j = jfp.lk_track_fast(jp[0], jp[1], jnp.asarray(pts), jnp.asarray(valid))
+    t_out, t_st, t_err = tlk.lk_track(tp[0], tp[1], torch.as_tensor(pts), torch.as_tensor(valid))
+    beyond_margin = abs(dx) / 2 ** (len(tp[0]) - 1) > tlk.LK_MARGIN
+    assert beyond_margin == (seed == 9)
+    _check_lk(j, (t_out, t_st), t_err, uv, dx, dy, min_tracked=0.5 if beyond_margin else 0.7)
 
 
 def test_fundamental_ransac_same_draws():
@@ -123,18 +153,10 @@ def test_fundamental_ransac_same_draws():
     assert t_inl[bad].sum() <= 3 and t_inl.sum() > 40
 
 
-def test_frontend_tick_matches_jax(monkeypatch):
-    """Two `FrontendPoints` frames (detect, then a full tick) through both
-    packages, the JAX one tracking with the Pallas kernel in interpret mode
-    and both RANSACs on the same Gumbel draws: ids exact."""
-    import functools
-
-    monkeypatch.setattr(jlk, "lk_track_pallas",
-                        functools.partial(jlk.lk_track_pallas, interpret=True))
+def _two_ticks(jfe, tfe):
+    """Two frames (detect, then a full tick) through both frontends, both
+    RANSACs on the same Gumbel draws: ids exact, uv 1e-3 px."""
     img1, img2 = _pair(7, 2.2, -1.4)
-    kw = dict(max_cnt=40, min_dist=24, min_score=1e-4, focal=200.0)
-    jfe = jfp.FrontendPoints(JCam.create(200.0, 200.0, 160.0, 120.0), use_pallas=True, **kw)
-    tfe = tfp.FrontendPoints(TCam.create(200.0, 200.0, 160.0, 120.0), device="cpu", **kw)
     for k, img in enumerate((img1, img2)):
         gumbel = np.asarray(jax.random.gumbel(jax.random.fold_in(jfe._key, k), (100, 40),
                                               jnp.float32))
@@ -146,3 +168,29 @@ def test_frontend_tick_matches_jax(monkeypatch):
         np.testing.assert_allclose(t[2], j[2], rtol=0, atol=2e-3 / 200.0 / 0.05)  # velocity
         np.testing.assert_array_equal(tfe.track_cnt, jfe.track_cnt)
     assert (tfe.track_cnt[tfe.prev_valid] >= 2).sum() > 10  # most features tracked
+
+
+FRONTEND_KW = dict(max_cnt=40, min_dist=24, min_score=1e-4, focal=200.0)
+
+
+def test_frontend_tick_matches_jax(monkeypatch):
+    """`tracker="pallas"` against JAX's `use_pallas=True`, the Pallas kernel
+    in interpret mode."""
+    import functools
+
+    monkeypatch.setattr(jlk, "lk_track_pallas",
+                        functools.partial(jlk.lk_track_pallas, interpret=True))
+    jfe = jfp.FrontendPoints(JCam.create(200.0, 200.0, 160.0, 120.0), use_pallas=True,
+                             **FRONTEND_KW)
+    tfe = tfp.FrontendPoints(TCam.create(200.0, 200.0, 160.0, 120.0), tracker="pallas",
+                             device="cpu", **FRONTEND_KW)
+    _two_ticks(jfe, tfe)
+
+
+def test_frontend_default_tick_matches_jax_default():
+    """Both packages' default trackers: the port's `"fast"` formulation
+    against JAX's `lk_track_fast` (`use_pallas=False`)."""
+    jfe = jfp.FrontendPoints(JCam.create(200.0, 200.0, 160.0, 120.0), **FRONTEND_KW)
+    tfe = tfp.FrontendPoints(TCam.create(200.0, 200.0, 160.0, 120.0), device="cpu", **FRONTEND_KW)
+    assert not jfe.use_pallas and tfe.tracker == "fast"
+    _two_ticks(jfe, tfe)

@@ -19,12 +19,14 @@ Tolerances (float64 unless a case says float32):
     ones — the Hough weights are rounded through bfloat16 in both packages
     and summed in another order, so near-tied peaks may flip;
   * the rendered `run_euroc` with binary lines: both initialize, solve lines,
-    and their ATEs are within 0.015 m. Their RANSAC draws and LK formulations
-    differ, as in `test_torch_slice.py`, and they were 0.0065 m apart
-    (0.0520 and 0.0455 m). The limit lies below the 0.024-0.031 m by which
-    binary lines raise either package's ATE on this render over points only
-    (0.0207 and 0.0211 m), so a port whose lines changed nothing, or did
-    twice the reference's harm, fails;
+    and their ATEs are within 0.015 m. Both track with `lk_track_fast`'s
+    formulation but draw different RANSAC samples, as in
+    `test_torch_slice.py`; they were 0.0112 m apart (JAX 0.0535 m, port
+    0.0424 m, one run on a CPU; 0.0065 m apart while the port tracked with
+    the Pallas kernel's formulation). The limit lies below the 0.032 m by
+    which binary lines raise the reference's ATE on this render over points
+    only (0.0213 m), so a port whose lines changed nothing (0.0289 m points
+    only), or did twice the reference's harm, fails;
   * the port's `Estimator` fed every call the JAX run made into its own
     (IMU samples, point tracks, binary-line ids and segments): the same
     points and lines solved on every frame, costs within 1e-6 relative,

@@ -18,10 +18,19 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      flow error < 0.3 px; per formulation the time per track by CUDA
      events, the device time per launch (torch.profiler), the plain
      version's time, and the bound from the pixels its own windows cover.
-  4. the Hamming kernel against its plain version, bit-exact at 64×64 (the
-     line matcher's shape), 150×90 (ragged edges) and 1000×1000 (a
-     loop-closure size); times of both by CUDA events; the bound with
-     popcounts at their own rate.
+  4. the Hamming kernel (1-bit tensor-core MMA) against its plain version,
+     bit-exact, with the extreme rows (every bit set, every bit clear, equal
+     descriptors), at 64×64 (the line matcher's shape), 128×256 (the
+     loop-closure search), 150×90, 1000×1000, 1×1 and 17×300, and on
+     misaligned input views at 128×301 (unaligned output rows too); per
+     shape the device time per launch (torch.profiler), the plain version's
+     time, and by CUDA events (5 rounds of 200 calls, taken in turns; the
+     mean over the rounds, as for every `ms` of the kernels line, and the
+     fastest round beside it in the log) the kernel's and the two PyTorch
+     library calls' that compute the same function once the bits are
+     unpacked (`torch.matmul` of ±1 fp16 signs, `torch.cdist(p=0)` of 0/1
+     bits; checked bit for bit, the unpacking timed apart); and the bound
+     (bytes at every shape).
   5. render the `scripts/system_fps.py` dataset recipe with the port's
      simulator (cached in the temp directory), then the main path: the
      port's `run_euroc(use_lines=True, line_desc="binary",
@@ -62,17 +71,20 @@ LK_FAST_REPLACES = "plslam/models/frontend_points.py:253"
 LK_PALLAS_REPLACES = "plslam/ops/kernels/lk.py:120"
 HAMMING_SOURCE = "plslam_torch/csrc/hamming.cu"
 HAMMING_REPLACES = "plslam/ops/kernels/hamming.py:33"
-HAMMING_SHAPES = ((64, 64), (150, 90), (1000, 1000))  # the first is the line matcher's
+# the line matcher's (the kernels line's row), the loop-closure search's,
+# ragged edges, a throughput check, and the smallest and narrowest
+HAMMING_SHAPES = ((64, 64), (128, 256), (150, 90), (1000, 1000), (1, 1), (17, 300))
+HAMMING_MISALIGNED = (128, 301)  # both inputs views at one word past 16-B alignment
 POINTS_ONLY_FRAMES = 40  # published frames of the points-only run
 FRONTEND_FRAMES = 80  # camera frames of the frontend drives (both LK formulations)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM bytes/s
 # and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# `__popc` issues 16 results per clock per SM on sm_90 (CUDA C++ Programming
-# Guide, arithmetic instruction throughput), on 132 SMs at the 1.98 GHz boost
-# clock under which the data sheet's rates hold
-POPC_PER_S = 132 * 16 * 1.98e9
+# the dense INT8 tensor-core rate (H100 SXM data sheet): the fastest unit
+# that computes the Hamming matrix exactly (the data sheet gives no 1-bit
+# rate), priced at 2 × 256 operations an output, as the ±1 form needs
+INT8_OPS_PER_S = 1979e12
 
 
 _T0 = time.perf_counter()
@@ -171,10 +183,9 @@ def lk_track_bound(pyr1, pyr2, pts, valid, formulation, iters=10):
 
 def hamming_bound(n1, n2):
     """Least time of one [n1,8]×[n2,8] → [n1,n2] int32 distance matrix:
-    inputs read once, output written once; 8 popcounts per output at the
-    popcount rate (the xor and the add of each word go to other pipes, at
-    four times that rate each)."""
-    return bound(4 * (8 * n1 + 8 * n2 + n1 * n2), 8 * n1 * n2, POPC_PER_S)
+    inputs read once, output written once; 2 × 256 operations an output at
+    the tensor cores' INT8 rate. The bytes bound it at every shape."""
+    return bound(4 * (8 * n1 + 8 * n2 + n1 * n2), 2 * 256 * n1 * n2, INT8_OPS_PER_S)
 
 
 def check_lk_kernel(dev):
@@ -218,33 +229,60 @@ def check_lk_kernel(dev):
     return rows
 
 
-def check_hamming_kernel(dev):
-    """Phase 4: kernel vs plain version on the card, bit-exact; returns the
-    row of the line matcher's shape (the first of HAMMING_SHAPES)."""
+def _hamming_exact(a, b, what):
+    """One kernel call against the plain version, bit for bit; returns the
+    largest difference (0)."""
     import torch
 
     from plslam_torch.ops.kernels import hamming
-    from plslam_torch.utils.measure import cuda_time_ms
+
+    k = hamming.hamming_matrix_cuda(a, b)
+    p = hamming.hamming_matrix_torch(a, b)
+    torch.cuda.synchronize()
+    err = int((k.to(torch.int64) - p).abs().max())
+    if k.dtype != torch.int32 or not torch.equal(k, p):
+        raise AssertionError(f"Hamming kernel disagrees with its plain version at {what}: "
+                             f"max |Δ| {err}")
+    return err
+
+
+def check_hamming_kernel(dev):
+    """Phase 4: kernel vs plain version on the card, bit-exact, then its
+    times beside the library calls' and the bound; returns the row of the
+    line matcher's shape (the first of HAMMING_SHAPES)."""
+    from plslam_torch.ops.kernels import hamming
+    from plslam_torch.utils.measure import (cuda_time_ms, device_us, hamming_inputs,
+                                            hamming_library, misaligned, ms_in_turns)
 
     rng = np.random.default_rng(1)
     rows = []
     for n1, n2 in HAMMING_SHAPES:
-        a, b = (torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32))
-                .to(dev) for n in (n1, n2))
-        k = hamming.hamming_matrix_cuda(a, b)
-        p = hamming.hamming_matrix_torch(a, b)
-        torch.cuda.synchronize()
-        err = int((k.to(torch.int64) - p).abs().max())
-        if k.dtype != torch.int32 or not torch.equal(k, p):
-            raise AssertionError(f"Hamming kernel disagrees with its plain version at {n1}×{n2}: "
-                                 f"max |Δ| {err}")
-        ms = cuda_time_ms(lambda: hamming.hamming_matrix_cuda(a, b), reps=200)
+        a, b = hamming_inputs(rng, n1, n2, dev)
+        err = _hamming_exact(a, b, f"{n1}×{n2}")
+        us = device_us(lambda: hamming.hamming_matrix_cuda(a, b), "hamming_kernel")
         plain_ms = cuda_time_ms(lambda: hamming.hamming_matrix_torch(a, b))
+        calls, unpack_ms = hamming_library(a, b)
+        rounds = ms_in_turns({"kernel": lambda: hamming.hamming_matrix_cuda(a, b), **calls})
+        mean = {name: sum(r) / len(r) for name, r in rounds.items()}
+        ms = mean.pop("kernel")
+        best = min(mean, key=mean.get)
         bound_ms, bound_by = hamming_bound(n1, n2)
-        log(f"  {n1}×{n2}: bit-exact; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-            f"bound {bound_ms:.6f} ms ({bound_by})")
+        log(f"  {n1}×{n2}: bit-exact; kernel {us:.3f} µs device time; by CUDA events (mean | "
+            f"fastest of {len(rounds['kernel'])} rounds in turns) kernel {ms:.5f} | "
+            f"{min(rounds['kernel']):.5f} ms, "
+            + ", ".join(f"{name} {t:.5f} | {min(rounds[name]):.5f} ms" for name, t in mean.items())
+            + f" (unpacking apart: {unpack_ms:.5f} ms); plain {plain_ms:.5f} ms; "
+            f"bound {bound_ms:.3e} ms ({bound_by})")
         rows.append(dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
+                         bound_by=bound_by, library_ms=mean[best]))
+        if len(rows) == 1:
+            log(f"  the kernels line's library_ms at {n1}×{n2}: {best}")
+    n1, n2 = HAMMING_MISALIGNED
+    views = [misaligned(x) for x in hamming_inputs(rng, n1, n2, dev)]
+    if any(v.data_ptr() % 16 == 0 for v in views):
+        raise AssertionError("the misaligned views are 16-B aligned")
+    _hamming_exact(*views, f"{n1}×{n2} (misaligned input views)")
+    log(f"  {n1}×{n2} on misaligned input views: bit-exact")
     return rows[0]
 
 
@@ -538,8 +576,7 @@ def main():
          "replaces": LK_PALLAS_REPLACES, "launches": pallas_launches, **lk_rows["pallas"],
          "library_ms": None},
         {"name": "hamming_matrix", "route": "cuda", "source": HAMMING_SOURCE,
-         "replaces": HAMMING_REPLACES, "launches": launches["hamming_matrix"], **ham_row,
-         "library_ms": None},
+         "replaces": HAMMING_REPLACES, "launches": launches["hamming_matrix"], **ham_row},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

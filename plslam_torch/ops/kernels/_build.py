@@ -5,14 +5,14 @@ an object file (one nvcc process per source, all started together), links
 them into `plslam_torch/_build/libplslam_kernels_<hash>.so` and returns its
 path. The hash covers the sources, the nvcc path and the flags, so a build
 is reused until one of them changes. `lib()` loads that library once;
-each kernel module (`lk.py`, `hamming.py`) binds its own C symbol from it.
+each kernel module (`lk.py`, `hamming.py`) binds its own C symbol from it,
+once, and keeps the bound function.
 The sources have a plain C interface and include no PyTorch header, so a
 build takes seconds.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
@@ -93,9 +93,9 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-@functools.lru_cache(maxsize=None)
 def bind(name: str, argtypes: tuple):
-    """The C function `name` of the library, returning an int (a cudaError)."""
+    """The C function `name` of the library, returning an int (a cudaError).
+    Each kernel module binds its entry once and keeps it."""
     fn = getattr(lib(), name)
     fn.restype = ctypes.c_int
     fn.argtypes = list(argtypes)

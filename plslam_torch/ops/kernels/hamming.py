@@ -8,9 +8,11 @@ into 8 words, `out[i, j] = Σ_w popcount(d1[i, w] ^ d2[j, w])`, [N1,8] ×
 patterns (torch's uint32 lacks most operations); the kernel reads the same
 bits as uint32.
 
-`hamming_matrix` dispatches on the device of its inputs: CPU tensors take
-the plain version, CUDA tensors the kernel (or an error — there is no
-fallback). `LAUNCHES` counts kernel launches.
+The kernel computes popcount(a) + popcount(b) − 2·popcount(a ∧ b) with the
+tensor cores' 1-bit product (`mma … .b1.b1.s32.and.popc`); the plain version
+popcounts the xor. `hamming_matrix` dispatches on the device of its inputs:
+CPU tensors take the plain version, CUDA tensors the kernel (or an error —
+there is no fallback). `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -22,9 +24,10 @@ from plslam_torch.ops.kernels import _build
 
 WORDS = 8  # 256 bits
 LAUNCHES = 0  # kernel launches (plain-version calls do not count)
-_MAX_ROWS = 65535 * 32  # the kernel's grid.y limit, in descriptors of d1
+_MAX_ROWS = 65535 * 32  # the kernel's grid.y limit (32-row tiles), in descriptors of d1
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p)
+_FN = None  # the bound C entry, after the first launch
 
 
 # ---------------------------------------------------------------- plain torch
@@ -56,21 +59,27 @@ def _check(t, name):
 
 def hamming_matrix_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """[N1,8] × [N2,8] int32 words on the card → [N1,N2] int32, through
-    `plslam_hamming_u32x8`."""
-    global LAUNCHES
+    `plslam_hamming_u32x8`. The host path is the call's pace at the line
+    matcher's 64×64 (a launch takes ~1.3 µs of device time), so it makes no
+    object it does not need: device indices, not `torch.device`s; the raw
+    handle of PyTorch's current stream, not a `Stream`; the C entry bound
+    once."""
+    global LAUNCHES, _FN
     _check(d1, "d1")
     _check(d2, "d2")
-    if d1.device != d2.device:
+    dev = d1.get_device()
+    if d2.get_device() != dev:
         raise ValueError(f"d1 and d2 must be on one device, got {d1.device} and {d2.device}")
-    n1, n2 = d1.shape[0], d2.shape[0]
+    n1, n2 = d1.size(0), d2.size(0)
     if n1 > _MAX_ROWS:
         raise ValueError(f"d1: at most {_MAX_ROWS} descriptors, got {n1}")
-    out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
+    out = d1.new_empty((n1, n2))  # int32 on d1's device
     if n1 == 0 or n2 == 0:
         return out
-    fn = _build.bind("plslam_hamming_u32x8", _ARGTYPES)
-    stream = torch.cuda.current_stream(d1.device).cuda_stream
-    rc = fn(d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n1, n2, stream)
+    if _FN is None:
+        _FN = _build.bind("plslam_hamming_u32x8", _ARGTYPES)
+    rc = _FN(d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n1, n2,
+             torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"hamming kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

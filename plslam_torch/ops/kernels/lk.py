@@ -207,6 +207,7 @@ class _Pyramid(ctypes.Structure):
 _ARGTYPES = (ctypes.POINTER(_Pyramid), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_int, ctypes.c_void_p)
+_FN = None  # the bound C entry, after the first launch
 
 
 def _check(t, name, shape, dtype=torch.float32):
@@ -229,7 +230,7 @@ def lk_track_cuda(pyr_prev, pyr_cur, pts_prev, valid, levels: int | None = None,
     needs every level to hold its 30×30 search window; `"pallas"` needs
     17 rows (its 24-row template window inside the level padded to a
     multiple of 8 rows, as the Pallas kernel pads it)."""
-    global LAUNCHES
+    global LAUNCHES, _FN
     _check_formulation(formulation)
     levels = len(pyr_prev) if levels is None else levels
     if not 1 <= levels <= min(MAX_LEVELS, len(pyr_prev), len(pyr_cur)):
@@ -255,14 +256,15 @@ def lk_track_cuda(pyr_prev, pyr_cur, pts_prev, valid, levels: int | None = None,
             raise ValueError("the pyramids and the points must be on one device")
         pyr.prev[level], pyr.cur[level] = prev.data_ptr(), cur.data_ptr()
         pyr.h[level], pyr.w[level] = prev.shape
-    fn = _build.bind("plslam_lk_track_f32", _ARGTYPES)
+    if _FN is None:
+        _FN = _build.bind("plslam_lk_track_f32", _ARGTYPES)
     out = torch.empty((n, 2), dtype=torch.float32, device=pts_prev.device)
     status = torch.empty((n,), dtype=torch.bool, device=pts_prev.device)
     err = torch.empty((n,), dtype=torch.float32, device=pts_prev.device)
     stream = torch.cuda.current_stream(pts_prev.device).cuda_stream
-    rc = fn(ctypes.byref(pyr), pts_prev.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            status.data_ptr(), err.data_ptr(), n, int(iters), float(err_thresh),
-            FORMULATIONS.index(formulation), stream)
+    rc = _FN(ctypes.byref(pyr), pts_prev.data_ptr(), valid.data_ptr(), out.data_ptr(),
+             status.data_ptr(), err.data_ptr(), n, int(iters), float(err_thresh),
+             FORMULATIONS.index(formulation), stream)
     if rc != 0:
         raise RuntimeError(f"lk kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -1,12 +1,18 @@
 """What the card check (`chip_smoke.py`) and the timing scripts under
-`scripts/` share: the card's name and power limit, CUDA-event and profiler
-timing, and the LK kernel's inputs at the main path's shapes."""
+`scripts/` share: the card's name and power limit, CUDA-event, profiler and
+host timing, the LK kernel's inputs at the main path's shapes, and the
+PyTorch library calls that compute the Hamming matrix (a yardstick only: no
+path of the port calls them)."""
 from __future__ import annotations
 
 import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
+
+from plslam_torch.utils import device as _policy  # noqa: F401  (TF32 off: true fp32 matmuls)
 
 
 def card_info():
@@ -31,24 +37,50 @@ def cuda_time_ms(fn, reps=50, warmup=5):
     return start.elapsed_time(end) / reps
 
 
+HOST_CALLS, HOST_ROUNDS = 2000, 3  # `host_us`: calls a round, rounds
+PROFILER_SESSIONS = 3  # `device_us`: sessions tried before it gives up
+
+
+def host_us(fn):
+    """µs of host time a call of `fn`: the mean over HOST_CALLS calls with no
+    synchronize in between (what the caller's thread spends enqueuing), the
+    fastest of HOST_ROUNDS such rounds."""
+    for _ in range(20):
+        fn()
+    best = float("inf")
+    for _ in range(HOST_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        best = min(best, 1e6 * (time.perf_counter() - t0) / HOST_CALLS)
+    torch.cuda.synchronize()
+    return best
+
+
 def device_us(fn, name, reps=50):
     """Device time per launch (µs) of the kernels whose name holds `name`
     that `fn` launches, from torch.profiler's raw device events over `reps`
     calls after one warm-up call: the mean over the launches whose records
-    the profiler kept (it can drop some; a smoke run once kept 38 of 50)."""
+    the profiler kept (it can drop some; a smoke run once kept 38 of 50,
+    and a session can keep none: it is then run again, up to
+    PROFILER_SESSIONS sessions)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-          if e.device_type() == torch.autograd.DeviceType.CUDA and name in e.name()]
-    if not ns:
-        raise AssertionError(f"the profiler saw no '{name}' kernel in {reps} calls")
-    return 1e-3 * sum(ns) / len(ns)
+    for attempt in range(1, PROFILER_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA and name in e.name()]
+        if ns:
+            return 1e-3 * sum(ns) / len(ns)
+        print(f"device_us: profiler session {attempt} of {PROFILER_SESSIONS} kept no '{name}' "
+              f"record of {reps} calls", file=sys.stderr, flush=True)
+    raise AssertionError(f"the profiler saw no '{name}' kernel in {PROFILER_SESSIONS} × {reps} calls")
 
 
 def shifted_texture(rng, h, w, dx, dy, sigma=3.0):
@@ -88,3 +120,79 @@ def lk_inputs(dev, h=480, w=752, levels=4, n_features=150):
                              [11.3, 11.8], [w - 11.0, h - 10.6]], device=dev)
     valid = torch.ones(n_features, dtype=torch.bool, device=dev)
     return pyr1, pyr2, pts, valid, (dx, dy)
+
+
+def hamming_inputs(rng, n1, n2, dev):
+    """[n1,8] and [n2,8] int32 words carrying random uint32 bits from `rng`,
+    with the extremes where the sizes allow: every bit set in d1[0] and
+    d2[0] (distance 0), every bit clear in d1[1] (256 to d2[0]), and d2[1]
+    equal to d1[2] (distance 0)."""
+    a, b = (rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32) for n in (n1, n2))
+    a[0] = b[0] = 0xFFFFFFFF
+    if n1 > 1:
+        a[1] = 0
+    if n1 > 2 and n2 > 1:
+        b[1] = a[2]
+    return tuple(torch.from_numpy(x.view(np.int32)).to(dev) for x in (a, b))
+
+
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `x` whose data starts one element past the
+    allocator's aligned base (4 B past 16-B alignment for int32)."""
+    v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    return v.copy_(x)
+
+
+def unpack_bits(d: torch.Tensor) -> torch.Tensor:
+    """[N,8] int32 words carrying uint32 bits → [N,256] int64 0/1 bits
+    (word by word, least significant bit first)."""
+    w = d.to(torch.int64) & 0xFFFFFFFF
+    return ((w[:, :, None] >> torch.arange(32, device=d.device)) & 1).reshape(d.shape[0], -1)
+
+
+def hamming_library_calls(d1, d2):
+    """The two single PyTorch calls that compute the Hamming matrix of
+    [N1,8] × [N2,8] words once their bits are unpacked (here, outside the
+    calls): name → (call, decode of its result to the int32 distances).
+    `torch.matmul` of ±1 float16 signs gives 256 − 2H (every partial sum is
+    an integer within ±256, exact in float16); `torch.cdist(p=0)` of 0/1
+    float32 bits counts the bits that differ."""
+    b1, b2 = unpack_bits(d1), unpack_bits(d2)
+    s1, s2t = (1 - 2 * b1).to(torch.float16), (1 - 2 * b2).to(torch.float16).T
+    f1, f2 = b1.to(torch.float32), b2.to(torch.float32)
+    return {
+        "torch.matmul(±1 float16 signs)": (
+            lambda: torch.matmul(s1, s2t), lambda m: ((256 - m.to(torch.float32)) / 2).to(torch.int32)),
+        "torch.cdist(0/1 float32 bits, p=0)": (
+            lambda: torch.cdist(f1, f2, p=0), lambda m: m.to(torch.int32)),
+    }
+
+
+def hamming_library(d1, d2):
+    """The calls of `hamming_library_calls` on the card, each checked
+    against `hamming_matrix_torch` bit for bit (it raises otherwise).
+    Returns ({name: call}, the unpacking's ms by CUDA events, which no
+    call's time includes)."""
+    from plslam_torch.ops.kernels.hamming import hamming_matrix_torch
+
+    unpack_ms = cuda_time_ms(lambda: hamming_library_calls(d1, d2), reps=20, warmup=2)
+    ref = hamming_matrix_torch(d1, d2)
+    calls = {}
+    for name, (call, decode) in hamming_library_calls(d1, d2).items():
+        if not torch.equal(decode(call()), ref):
+            raise AssertionError(f"{name} does not give the Hamming matrix")
+        calls[name] = call
+    return calls, unpack_ms
+
+
+def ms_in_turns(fns, reps=200, rounds=5):
+    """{name: [ms a call, one a round]} for each of the callables `fns`:
+    `rounds` rounds of `cuda_time_ms(fn, reps)`, taken in turns (one round
+    of each, then the next), so that the calls share the host's load. Where
+    the host paces the calls, that load moves single rounds by tens of
+    percent."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_time_ms(fn, reps=reps))
+    return times

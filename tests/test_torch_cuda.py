@@ -120,18 +120,30 @@ def test_run_synthetic_card_matches_cpu(dev):
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("n1,n2", [(64, 64), (150, 90), (1000, 1000)])
-def test_hamming_kernel_matches_plain(dev, n1, n2):
+@pytest.mark.parametrize("n1,n2,misaligned", [
+    (64, 64, False), (128, 256, False), (150, 90, False), (1000, 1000, False), (1, 1, False),
+    (17, 300, False), (64, 301, False), (128, 301, True)])
+def test_hamming_kernel_matches_plain(dev, n1, n2, misaligned):
+    """One launch, bit-exact with the plain version, on inputs with the
+    extreme rows (every bit set, every bit clear, equal descriptors). An odd
+    n2 (301) takes the kernel's 4-B stores, an even one its 8-B stores;
+    `misaligned` passes both inputs as contiguous views one word past an
+    aligned base, which the kernel reads a word at a time."""
     from plslam_torch.ops.kernels import hamming
+    from plslam_torch.utils import measure
 
-    rng = np.random.default_rng(n1)
-    a, b = (torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32)).to(dev)
-            for n in (n1, n2))
+    a, b = measure.hamming_inputs(np.random.default_rng(n1 + n2), n1, n2, dev)
+    if misaligned:
+        a, b = measure.misaligned(a), measure.misaligned(b)
+        assert a.data_ptr() % 16 and b.data_ptr() % 16
     n0 = hamming.LAUNCHES
     out = hamming.hamming_matrix(a, b)
     assert hamming.LAUNCHES == n0 + 1
     torch.cuda.synchronize()
-    assert torch.equal(out, hamming.hamming_matrix_torch(a, b))
+    ref = hamming.hamming_matrix_torch(a, b)
+    assert out.dtype == torch.int32 and out.shape == (n1, n2)
+    assert torch.equal(out, ref)
+    assert out[0, 0] == 0 and (n1 < 2 or out[1, 0] == 256) and (n1 < 3 or n2 < 2 or out[2, 1] == 0)
     with pytest.raises(ValueError, match="int32"):
         hamming.hamming_matrix(a.to(torch.int64), b.to(torch.int64))
 

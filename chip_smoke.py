@@ -45,11 +45,28 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      the first 24 published frames of the main path under `torch.profiler`:
      the device's busy share and the kernels that fill it, summed from the
      profiler's raw device events.
-  6. one JSON line of kernel results, then the last line
+  6. the loop scene (the `tests/test_loop_e2e.py` recipe: one 14-s circle
+     that revisits its start, rendered with the port's simulator and cached
+     as phase 5's set; the estimator fed a 1.5° yaw and ~1 cm lever-arm
+     miscalibrated extrinsic, so that loops have drift to close), run twice
+     through `run_euroc(loop_closure=True, device="cuda")`: (a) the JAX
+     test's own configuration (points only, float64), held to that test's
+     assertions; (b) the smoke's full-width configuration (binary lines,
+     float32), held to finite poses, ATE < 0.4 m, one DB entry a keyframe,
+     LK launches = tracked frames and Hamming launches = published frames +
+     the keyframe searches that reached the descriptor match. Both show
+     that one recorded CUDA graph of the LM served the relo solves too.
+     Logged: loops, candidate outcomes, loop gaps, per-keyframe
+     `add_keyframe` ms, `_find_connection` ms (PnP apart), `optimize` ms
+     at the K and E it reached, and the search's Hamming device µs.
+  7. one JSON line of kernel results (a row for the loop search's Hamming
+     launches beside the line matcher's), then the last line
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import hashlib
 import json
 import os
@@ -66,6 +83,7 @@ ERR_GATE = 0.12
 POS_TOL_PX = 1e-3
 DURATION = 12.0  # seconds of camera frames rendered
 ATE_LIMIT_M = 0.4
+MIN_POSES = 40  # finite poses a run_euroc of phases 5 and 6 must emit
 LK_SOURCE = "plslam_torch/csrc/lk.cu"
 LK_FAST_REPLACES = "plslam/models/frontend_points.py:253"
 LK_PALLAS_REPLACES = "plslam/ops/kernels/lk.py:120"
@@ -248,14 +266,14 @@ def _hamming_exact(a, b, what):
 
 def check_hamming_kernel(dev):
     """Phase 4: kernel vs plain version on the card, bit-exact, then its
-    times beside the library calls' and the bound; returns the row of the
-    line matcher's shape (the first of HAMMING_SHAPES)."""
+    times beside the library calls' and the bound; returns the kernels
+    line's numbers for every shape of HAMMING_SHAPES, by shape."""
     from plslam_torch.ops.kernels import hamming
     from plslam_torch.utils.measure import (cuda_time_ms, device_us, hamming_inputs,
                                             hamming_library, misaligned, ms_in_turns)
 
     rng = np.random.default_rng(1)
-    rows = []
+    rows = {}
     for n1, n2 in HAMMING_SHAPES:
         a, b = hamming_inputs(rng, n1, n2, dev)
         err = _hamming_exact(a, b, f"{n1}×{n2}")
@@ -273,30 +291,41 @@ def check_hamming_kernel(dev):
             + ", ".join(f"{name} {t:.5f} | {min(rounds[name]):.5f} ms" for name, t in mean.items())
             + f" (unpacking apart: {unpack_ms:.5f} ms); plain {plain_ms:.5f} ms; "
             f"bound {bound_ms:.3e} ms ({bound_by})")
-        rows.append(dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=mean[best]))
-        if len(rows) == 1:
-            log(f"  the kernels line's library_ms at {n1}×{n2}: {best}")
+        rows[n1, n2] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=mean[best])
+        log(f"  library_ms at {n1}×{n2}: {best}")
     n1, n2 = HAMMING_MISALIGNED
     views = [misaligned(x) for x in hamming_inputs(rng, n1, n2, dev)]
     if any(v.data_ptr() % 16 == 0 for v in views):
         raise AssertionError("the misaligned views are 16-B aligned")
     _hamming_exact(*views, f"{n1}×{n2} (misaligned input views)")
     log(f"  {n1}×{n2} on misaligned input views: bit-exact")
-    return rows[0]
+    return rows
 
 
 TRAJECTORY = dict(omega=0.4, z_omega=0.7, wiggle_amp=0.15, excite_amp=0.1)
 SEQUENCE = dict(duration=DURATION, n_points=500, n_lines=40, seed=17,
                 acc_noise=0.1, gyr_noise=0.005, acc_bias=0.05, gyr_bias=0.002)
 RENDER = dict(h=H, w=W, max_frames=int(DURATION * 20), blob_sigma=3.0, style="textured")
+# the loop scene: `tests/test_loop_e2e.py`'s recipe, one circle at ω = 0.5
+# rad/s (a revisit after 12.6 s) in 14 s
+LOOP_TRAJECTORY = dict(omega=0.5, z_omega=0.8)
+LOOP_SEQUENCE = dict(duration=14.0, n_points=500, n_lines=40, seed=23,
+                     acc_noise=0.1, gyr_noise=0.005, acc_bias=0.05, gyr_bias=0.002)
+LOOP_RENDER = dict(h=H, w=W, max_frames=280, blob_sigma=3.0, style="textured")
+DATASETS = {"fps": (TRAJECTORY, SEQUENCE, RENDER),
+            "loop": (LOOP_TRAJECTORY, LOOP_SEQUENCE, LOOP_RENDER)}
+# the estimator's extrinsic error in the loop scene (the renderer uses the true one)
+MISCAL_YAW_DEG = 1.5
+MISCAL_LEVER_M = (0.01, -0.005, 0.008)
+LOOP_GAP, LOOP_MAX_KEYFRAMES = 40, 512
 
 
-def dataset_key():
+def dataset_key(name="fps"):
     """A hash of the recipe and of the simulator's and renderer's sources."""
     import plslam_torch.io as io_pkg
 
-    h = hashlib.sha256(json.dumps([TRAJECTORY, SEQUENCE, RENDER, F], sort_keys=True).encode())
+    h = hashlib.sha256(json.dumps([*DATASETS[name], F], sort_keys=True).encode())
     io_dir = os.path.dirname(os.path.abspath(io_pkg.__file__))
     for name in sorted(os.listdir(io_dir)):
         if name.endswith(".py"):
@@ -305,24 +334,25 @@ def dataset_key():
     return h.hexdigest()[:16]
 
 
-def render_dataset():
-    """The `scripts/system_fps.py` recipe, rendered with the port's simulator
-    into a cache keyed by `dataset_key()`."""
+def render_dataset(name="fps"):
+    """A recipe of `DATASETS` (by default the `scripts/system_fps.py` one),
+    rendered with the port's simulator into a cache keyed by `dataset_key`."""
     from plslam_torch.io import render, synthetic
     from plslam_torch.ops.cameras import PinholeRadTan
     from plslam_torch.utils.geometry import quat_to_rot
 
-    cache = os.path.join(tempfile.gettempdir(), f"plslam_torch_fps_ds_{dataset_key()}")
+    cache = os.path.join(tempfile.gettempdir(), f"plslam_torch_{name}_ds_{dataset_key(name)}")
     meta = os.path.join(cache, "meta.npz")
     if os.path.exists(meta):
         return cache, 0.0
     t0 = time.perf_counter()
-    seq = synthetic.make_sequence(params=synthetic.TrajectoryParams(**TRAJECTORY), **SEQUENCE)
+    trajectory, sequence, rendering = DATASETS[name]
+    seq = synthetic.make_sequence(params=synthetic.TrajectoryParams(**trajectory), **sequence)
     cam = PinholeRadTan.create(F, F, W / 2, H / 2)
     os.makedirs(cache, exist_ok=True)
-    render.write_euroc_dataset(seq, cache, cam, **RENDER)
+    render.write_euroc_dataset(seq, cache, cam, **rendering)
     np.savez(meta, R_bc=quat_to_rot(seq.q_bc).numpy(), p_bc=seq.p_bc.numpy(),
-             gt_t=seq.frame_t.numpy(), gt_p=seq.gt_p.numpy())
+             gt_t=seq.frame_t.numpy(), gt_p=seq.gt_p.numpy(), gt_q=seq.gt_q.numpy())
     return cache, time.perf_counter() - t0
 
 
@@ -411,8 +441,9 @@ def run_main_path(dev):
     launches = {"lk_track": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
     if not est.initialized:
         raise AssertionError("the estimator did not initialize")
-    if len(ts) < 40 or not np.all(np.isfinite(ps)) or np.asarray(ps).shape[1:] != (3,):
-        raise AssertionError(f"expected ≥ 40 finite [3] positions, got {np.asarray(ps).shape}")
+    if len(ts) < MIN_POSES or not np.all(np.isfinite(ps)) or np.asarray(ps).shape[1:] != (3,):
+        raise AssertionError(f"expected ≥ {MIN_POSES} finite [3] positions, "
+                             f"got {np.asarray(ps).shape}")
     if launches["lk_track"] != n_cam - 1:
         raise AssertionError(f"LK launches {launches['lk_track']} != {n_cam - 1} tracked frames")
     if launches["hamming_matrix"] != n_pub:
@@ -535,6 +566,193 @@ def drive_frontends(dev):
     return drives["pallas"][0]
 
 
+def loop_extrinsic(meta):
+    """The loop scene's miscalibrated body_T_cam: the true one turned by
+    MISCAL_YAW_DEG about the camera's z and shifted by MISCAL_LEVER_M."""
+    a = np.radians(MISCAL_YAW_DEG)
+    Rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+    return meta["R_bc"] @ Rz, meta["p_bc"] + np.array(MISCAL_LEVER_M)
+
+
+def loop_configs(meta):
+    """(a) `tests/test_loop_e2e.py`'s configuration; (b) the smoke's full
+    width (phase 5's configuration) with the same loop settings. Both get
+    the miscalibrated extrinsic."""
+    from plslam_torch.config import (CameraConfig, ExtrinsicConfig, LoopConfig, PLSlamConfig,
+                                     SolverConfig, TrackerConfig)
+
+    R_bc, p_bc = loop_extrinsic(meta)
+    extrinsic = ExtrinsicConfig(0, tuple(R_bc.reshape(-1)), tuple(p_bc))
+    loop = LoopConfig(loop_closure=True, min_loop_gap=LOOP_GAP, max_keyframes=LOOP_MAX_KEYFRAMES)
+    reference = PLSlamConfig(
+        camera=CameraConfig(image_width=W, image_height=H, fx=F, fy=F, cx=W / 2, cy=H / 2,
+                            k1=0, k2=0, p1=0, p2=0),
+        tracker=TrackerConfig(max_cnt=100, min_dist=30, equalize=True, min_score=2e-3),
+        solver=SolverConfig(max_features=96, max_line_feats=24, dtype="float64", focal_length=F),
+        extrinsic=extrinsic, loop=loop)
+    full = dataclasses.replace(smoke_config(meta), extrinsic=extrinsic, loop=loop)
+    return reference, full
+
+
+def loop_gaps(pg, xyz, yaw):
+    """The revisit gap of every loop edge at poses (xyz, yaw): the
+    translation residual the 4-DoF PGO minimizes."""
+    from plslam_torch.utils import quat_np as qnp
+
+    gaps = []
+    for e in pg.edges:
+        if e["loop"]:
+            i, j = e["i"], e["j"]
+            Ri = qnp.ypr_to_rot(np.array([yaw[i], pg.pitch[i], pg.roll[i]]))
+            gaps.append(np.linalg.norm(Ri.T @ (xyz[j] - xyz[i]) - np.asarray(e["t"])))
+    return np.asarray(gaps)
+
+
+def run_loop_case(dev, label, cfg, use_lines):
+    """One `run_euroc(loop_closure=True)` over the loop scene with the launch
+    counts set to 0 just before it; checks what both cases share and logs
+    the pose graph's outcomes and costs. Returns (run outputs, meta,
+    launches, keyframe searches that reached the descriptor match, the
+    largest difference of the search's Hamming kernel from its plain
+    version)."""
+    import torch
+
+    from plslam_torch import runner
+    from plslam_torch.eval.metrics import ate_rmse
+    from plslam_torch.ops.kernels import hamming, lk
+    from plslam_torch.utils.measure import device_us, pgo_graph_vs_eager
+
+    path, _ = render_dataset("loop")
+    meta = np.load(os.path.join(path, "meta.npz"))
+    n_cam, n_pub = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))))
+    lk.LAUNCHES = hamming.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, ps, qs, est, pg = runner.run_euroc(path, cfg, use_lines=use_lines, loop_closure=True,
+                                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"lk_track": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
+    searched = [r for r in pg.stats if r["outcome"] not in ("no_window_points", "no_descriptors")]
+    ate = float(ate_rmse(ts, ps, meta["gt_t"], meta["gt_p"], align="yaw"))
+    log(f"  ({label}) {n_cam} camera frames, "
+        f"{n_pub} published, {len(ts)} emitted in {wall:.2f} s = {n_cam / wall:.2f} camera "
+        f"frames/s; keyframes {pg.n}, DB {pg.db.n}, loops {pg.loop_count}; launches {launches}, "
+        f"searches reaching the match {len(searched)}; ATE(yaw) {ate:.4f} m")
+    log(f"  ({label}) candidate outcomes {dict(collections.Counter(r['outcome'] for r in pg.stats))}")
+    if not est.initialized:
+        raise AssertionError(f"({label}) the estimator did not initialize")
+    if not np.all(np.isfinite(ps)) or np.asarray(ps).shape[1:] != (3,) or len(ts) < MIN_POSES:
+        raise AssertionError(f"({label}) expected ≥ {MIN_POSES} finite [3] positions, "
+                             f"got {np.asarray(ps).shape}")
+    if pg.db.n != pg.n:
+        raise AssertionError(f"({label}) {pg.db.n} DB entries for {pg.n} keyframes")
+    if launches["lk_track"] != n_cam - 1:
+        raise AssertionError(f"({label}) LK launches {launches['lk_track']} != {n_cam - 1} "
+                             f"tracked frames")
+    want = (n_pub if use_lines else 0) + len(searched)
+    if launches["hamming_matrix"] != want:
+        raise AssertionError(f"({label}) Hamming launches {launches['hamming_matrix']} != {want} "
+                             f"(line matches + keyframe searches)")
+    solves = [k for k in est._graphs if k[0] == "optimize_window"]
+    refined = [e for e in pg.edges if e["loop"] and "t_pnp" in e]
+    log(f"  ({label}) LM CUDA graphs recorded {len(solves)}; loop edges refined by the relo "
+        f"round trip {len(refined)}")
+    if len(solves) != 1:
+        raise AssertionError(f"({label}) {len(solves)} LM graphs recorded; relo frames must "
+                             f"replay the one graph")
+    times = pg.times
+    log(f"  ({label}) add_keyframe ms: median {np.median(times['add_keyframe']):.2f}, "
+        f"max {max(times['add_keyframe']):.2f} over {len(times['add_keyframe'])}, of which "
+        f"corners and descriptors median {np.median(times['features']):.2f}; "
+        f"_find_connection ms (PnP apart): median {np.median(times['find_connection'] or [0]):.2f} "
+        f"over {len(times['find_connection'])}; PnP ms: median {np.median(times['pnp'] or [0]):.2f} "
+        f"over {len(times['pnp'])}")
+    log(f"  ({label}) optimize (K, E, ms): {[(k, e, round(ms, 2)) for k, e, ms in times['optimize']]}")
+    pgo = pgo_graph_vs_eager(pg)
+    for way in ("graph", "eager"):
+        log(f"  ({label}) the run's PGO calls replayed {way} (ms a call, pass by pass, in turns): "
+            + "; ".join(f"total {sum(p):.2f}: {np.round(p, 2).tolist()}" for p in pgo[way]))
+    log(f"  ({label}) of which packing the inputs (ms): {np.round(pgo['pack'], 2).tolist()}")
+    gaps = loop_gaps(pg, pg.opt_p, pg.opt_yaw)
+    log(f"  ({label}) loop gaps at the optimized poses (m): {np.round(gaps, 4).tolist()}")
+    # every search's descriptor pair again, kernel against plain, bit for bit
+    shapes, err = {}, 0
+    for r in searched:
+        cur, old = pg.db.entries[r["j"]], pg.db.entries[r["i"]]
+        a, b = pg._desc_on_device(cur, "win_desc"), pg._desc_on_device(old, "desc")
+        err = max(err, _hamming_exact(a, b, f"{len(a)}×{len(b)} (loop search {r['i']}, {r['j']})"))
+        shapes.setdefault((len(a), len(b)), (a, b))
+    log(f"  ({label}) the search's Hamming equals its plain version on all {len(searched)} "
+        f"descriptor pairs, shapes {sorted(shapes)}")
+    for (n1, n2), (a, b) in sorted(shapes.items())[-3:]:
+        us = device_us(lambda: hamming.hamming_matrix_cuda(a, b), "hamming_kernel")
+        log(f"  ({label}) the search's Hamming at {n1}×{n2}: {us:.3f} µs device time")
+    return (ts, ps, qs, est, pg), meta, launches, len(searched), err
+
+
+def run_loop_scene(dev):
+    """Phase 6: (a) the JAX loop test's configuration, held to its
+    assertions; (b) the full width. Returns the loop search's Hamming
+    launches of (b) and the search kernel's largest difference from its
+    plain version over both runs' descriptor pairs."""
+    from plslam_torch.eval.metrics import ate_rmse
+    from plslam_torch.utils import quat_np as qnp
+
+    path, render_s = render_dataset("loop")
+    log(f"  dataset: {path} (rendered in {render_s:.1f} s)")
+    reference, full = loop_configs(np.load(os.path.join(path, "meta.npz")))
+
+    (ts, ps, _, est, pg), meta, _, _, err_a = run_loop_case(dev, "a", reference, use_lines=False)
+    gt_t, gt_p, gt_q = meta["gt_t"], meta["gt_p"], meta["gt_q"]
+    n = pg.n
+    raw_ate = float(ate_rmse(pg.t_kf[:n], pg.vio_p[:n], gt_t, gt_p, align="yaw"))
+    corr_ate = float(ate_rmse(pg.t_kf[:n], pg.opt_p[:n], gt_t, gt_p, align="yaw"))
+    raw_yaw = np.array([qnp.rot_to_ypr(qnp.quat_to_rot(pg.vio_q[k]))[0] for k in range(n)])
+    gap_raw, gap_corr = loop_gaps(pg, pg.vio_p, raw_yaw), loop_gaps(pg, pg.opt_p, pg.opt_yaw)
+    accepted = [r for r in pg.stats if r["outcome"] == "accepted"]
+    refined = [e for e in pg.edges if e["loop"] and "t_pnp" in e]
+
+    def gt_rel_t(e):
+        ki = np.argmin(np.abs(gt_t - pg.t_kf[e["i"]]))
+        kj = np.argmin(np.abs(gt_t - pg.t_kf[e["j"]]))
+        Ri = qnp.ypr_to_rot(qnp.rot_to_ypr(qnp.quat_to_rot(gt_q[ki])))
+        return Ri.T @ (gt_p[kj] - gt_p[ki])
+
+    err_pnp = [np.linalg.norm(np.asarray(e["t_pnp"]) - gt_rel_t(e)) for e in refined]
+    err_ref = [np.linalg.norm(np.asarray(e["t"]) - gt_rel_t(e)) for e in refined]
+    stream_ate = float(ate_rmse(ts, ps, gt_t, gt_p, align="yaw"))
+    log(f"  (a) keyframe ATE raw {raw_ate:.4f} m, corrected {corr_ate:.4f} m; loop gap max raw "
+        f"{gap_raw.max(initial=0):.4f} m, corrected {gap_corr.max(initial=0):.4f} m; accepted "
+        f"inliers {[r['inliers'] for r in accepted]}; refined edges' error vs GT: PnP "
+        f"{np.round(err_pnp, 4).tolist()}, refined {np.round(err_ref, 4).tolist()}; "
+        f"stream ATE {stream_ate:.4f} m")
+    checks = {
+        "pg.n > 80": n > 80, "db.n > 80": pg.db.n > 80, "loop_count ≥ 1": pg.loop_count >= 1,
+        "accepted candidates have ≥ min_pnp_inliers": all(
+            r["inliers"] >= reference.loop.min_pnp_inliers for r in accepted),
+        "raw keyframe ATE > 0.25 m": raw_ate > 0.25,
+        "raw loop gap > 0.4 m": gap_raw.max(initial=0) > 0.4,
+        "corrected gap < 0.35 × raw": gap_corr.max(initial=0) < 0.35 * gap_raw.max(initial=0),
+        "corrected gap < 0.25 m": gap_corr.max(initial=0) < 0.25,
+        "corrected ATE < 1.3 × raw": corr_ate < 1.3 * raw_ate,
+        "stream ATE finite and < 1 m": np.isfinite(stream_ate) and stream_ate < 1.0,
+        "a loop edge refined by the relo round trip": len(refined) > 0,
+        "refined edges beat PnP against GT": bool(refined) and np.mean(err_ref) < np.mean(err_pnp),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"(a) the loop e2e assertions failed: {failed}")
+    log(f"  (a) the loop e2e assertions hold: {len(checks)} of {len(checks)}")
+
+    (ts, ps, _, _, pg), meta, launches, searched, err_b = run_loop_case(dev, "b", full,
+                                                                        use_lines=True)
+    ate = float(ate_rmse(ts, ps, meta["gt_t"], meta["gt_p"], align="yaw"))
+    if not ate < ATE_LIMIT_M:
+        raise AssertionError(f"(b) ATE {ate:.4f} m ≥ {ATE_LIMIT_M} m")
+    return searched, max(err_a, err_b)
+
+
 def main():
     import torch
 
@@ -560,7 +778,7 @@ def main():
     log("phase 3: LK kernel (both formulations) vs plain versions on the card")
     lk_rows = check_lk_kernel(dev)
     log("phase 4: Hamming kernel vs plain version on the card")
-    ham_row = check_hamming_kernel(dev)
+    ham_rows = check_hamming_kernel(dev)
 
     log("phase 5: run_euroc on the card (binary lines, then points only)")
     launches = run_main_path(dev)
@@ -569,6 +787,9 @@ def main():
     pallas_launches = drive_frontends(dev)
     profile_short_run(dev, frames=24)
 
+    log("phase 6: the loop scene, run_euroc(loop_closure=True) on the card")
+    search_launches, search_err = run_loop_scene(dev)
+
     print(json.dumps({"kernels": [
         {"name": "lk_track fast", "route": "cuda", "source": LK_SOURCE, "replaces": LK_FAST_REPLACES,
          "launches": launches["lk_track"], **lk_rows["fast"], "library_ms": None},
@@ -576,7 +797,12 @@ def main():
          "replaces": LK_PALLAS_REPLACES, "launches": pallas_launches, **lk_rows["pallas"],
          "library_ms": None},
         {"name": "hamming_matrix", "route": "cuda", "source": HAMMING_SOURCE,
-         "replaces": HAMMING_REPLACES, "launches": launches["hamming_matrix"], **ham_row},
+         "replaces": HAMMING_REPLACES, "launches": launches["hamming_matrix"],
+         **ham_rows[HAMMING_SHAPES[0]]},
+        {"name": "hamming_matrix loop search", "route": "cuda", "source": HAMMING_SOURCE,
+         "replaces": HAMMING_REPLACES, "launches": search_launches,
+         **{**ham_rows[128, 256],
+            "max_abs_err": max(search_err, ham_rows[128, 256]["max_abs_err"])}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -159,6 +159,8 @@ class Estimator:
         self._pending = None  # deferred solve awaiting finalize()
         self._pending_prior = None
         self._kf_snapshot = None
+        self.relo: Optional[dict] = None  # pending relocalization frame
+        self.relo_result: Optional[dict] = None  # refined relative pose out
         self.ex_calibrated = self.config.extrinsic.estimate_extrinsic != 2
         self._ex_qcam: list = []
         self._ex_qimu: list = []
@@ -294,7 +296,10 @@ class Estimator:
         # samples arriving before finalize() land in the right interval
         self.imu_bufs.append(ImuBuffer())
         self.pres.append(None)
-        self._pending = dict(bundle=bundle, prior=prior, mode=mode, marg_flag=marg_flag, m=m)
+        # record WHICH relo request (if any) the dispatched bundle solved: a
+        # set_relo_frame between dispatch and finalize stays pending
+        self._pending = dict(bundle=bundle, prior=prior, mode=mode, marg_flag=marg_flag, m=m,
+                             relo=self.relo)
         if not defer_solve:
             self.finalize()
         return m
@@ -308,7 +313,7 @@ class Estimator:
         pend, self._pending = self._pending, None
         m = pend["m"]
         self._pending_prior = pend["prior"] if pend["mode"] != "none" else None
-        m.update(self._finish_solve(np.array(pend["bundle"].get()[0], np.float64)))
+        m.update(self._finish_solve(np.array(pend["bundle"].get()[0], np.float64), pend["relo"]))
         self.solves_since_init += 1
         if self._failure_detection(m):
             m["failure"] = True
@@ -353,6 +358,38 @@ class Estimator:
                 self.ex_calibrated = True
                 self._ex_qcam, self._ex_qimu = [], []
 
+    # --------------------------------------------------------- relocalization
+    def set_relo_frame(self, match_ids, match_obs_norm, relo_p, relo_q):
+        """`Estimator::setReloFrame`: register an old keyframe's matched
+        feature observations (by global feature id, normalized coordinates in
+        the old camera) and its pose guess. The next window solve adds relo
+        projection factors and refines the old pose jointly; the refined
+        relative transform lands in `relo_result`. Returns False (and
+        registers nothing) when fewer than 8 matches are in the window."""
+        mf = self.cfg.max_features
+        obs = np.zeros((mf, 2))
+        mask = np.zeros(mf)
+        slot_of = {int(i): s for s, i in enumerate(self.pt_table.ids) if i >= 0}
+        n = 0
+        for fid, ob in zip(match_ids, match_obs_norm):
+            s = slot_of.get(int(fid))
+            if s is not None:
+                obs[s] = ob
+                mask[s] = 1.0
+                n += 1
+        if n < 8:
+            return False
+        self.relo = dict(obs=obs, mask=mask, p=np.asarray(relo_p, np.float64),
+                         q=np.asarray(relo_q, np.float64))
+        return True
+
+    def _extract_relo_result(self, p_old, q_old, p_cur, q_cur):
+        """Relative pose old keyframe ← newest window frame after the joint
+        solve (the reference's `relo_relative_t/q`), from pulled values."""
+        q_rel = qnp.quat_mul(qnp.quat_conj(q_old), q_cur)
+        t_rel = qnp.quat_rotate(qnp.quat_conj(q_old), p_cur - p_old)
+        self.relo_result = dict(t=t_rel, q=q_rel, p_old=p_old, q_old=q_old)
+
     # ------------------------------------------------------------ device I/O
     def _device_state(self) -> WindowState:
         st = zero_state(self.cfg, self.dtype, self.device)
@@ -360,6 +397,8 @@ class Estimator:
             p=self._t(self.p), q=self._t(self.q), v=self._t(self.v),
             ba=self._t(self.ba), bg=self._t(self.bg),
             p_bc=self._t(self.p_bc), q_bc=self._t(self.q_bc), td=self._t(self.td),
+            relo_p=self._t(self.relo["p"] if self.relo else np.zeros(3)),
+            relo_q=self._t(self.relo["q"] if self.relo else np.array([1.0, 0, 0, 0])),
             inv_depth=self._t(np.where(self.pt_table.inv_depth > 0, self.pt_table.inv_depth, 0.2)),
             line=self._t(self.line_w),
         )
@@ -416,6 +455,11 @@ class Estimator:
             ln_valid=self._t(ltb.usable().astype(np.float64)),
             ln_start=self._t(ltb.start, torch.int64),
         )
+        # relo factors enter as data (relo_valid 0 or 1), so one recorded
+        # CUDA graph of the LM solve serves frames with and without them
+        if self.relo is not None:
+            f = f._replace(relo_obs=self._t(self.relo["obs"]), relo_mask=self._t(self.relo["mask"]),
+                           relo_valid=self._t(1.0))
         if self.prior is not None:
             f = marg.install_prior(f, self.prior)
         return f
@@ -447,7 +491,7 @@ class Estimator:
             self.lay, self.cfg, marg_mode=mode, graphs=self._graphs, **kw)
         return HostCopy(pack_bundle(st_out, stats, aux)), prior, mode
 
-    def _finish_solve(self, b: np.ndarray) -> dict:
+    def _finish_solve(self, b: np.ndarray, dispatched_relo=None) -> dict:
         tbl, ltb = self.pt_table, self.ln_table
         nw, MF, ML = self.cfg.window_size, self.cfg.max_features, self.cfg.max_line_feats
         NW = nw + 1
@@ -467,7 +511,8 @@ class Estimator:
         self.p_bc = take(3)
         self.q_bc = take(4)
         self.td = float(take(1)[0])
-        take(7)  # relocalization pose (no relo factors on this path)
+        relo_p = take(3)
+        relo_q = take(4)
         inv = take(MF)
         self.line_w = take(ML * 6, (ML, 6))
         take(MF)  # point triangulation commits (folded into pt_valid)
@@ -494,6 +539,13 @@ class Estimator:
             ltb.drop(np.nonzero(badl)[0])
         kf_m = pt_valid & (tbl.mask[:, nw] > 0) & (tbl.ids >= 0)
         self._kf_snapshot = (tbl.ids[kf_m].copy(), tbl.obs[kf_m, nw].copy(), p_w[kf_m].copy())
+        if dispatched_relo is not None:
+            # extract only the relo that was IN the dispatched solve, and
+            # clear the live request only if it is still that one (a fresher
+            # set_relo_frame stays pending for the next solve)
+            self._extract_relo_result(relo_p, relo_q, self.p[nw], self.q[nw])
+            if self.relo is dispatched_relo:
+                self.relo = None
         return dict(cost0=float(cost0), cost=float(cost), cost_robust0=float(cr0),
                     cost_robust=float(cr), iters_accepted=int(acc),
                     n_pts=int(pt_valid.sum()), n_lines=int(ln_solved.sum()))

@@ -71,13 +71,44 @@ def build_pyramid(img, levels: int = LK_LEVELS):
     return pyr
 
 
-def _sep_conv3(img):
-    """3-tap box filter (1/3 each), edge-replicated, rows then columns."""
-    k = 1.0 / 3.0
-    x = torch.nn.functional.pad(img[None, None], (0, 0, 1, 1), mode="replicate")[0, 0]
-    x = x[0:-2] * k + x[1:-1] * k + x[2:] * k
-    x = torch.nn.functional.pad(x[None, None], (1, 1, 0, 0), mode="replicate")[0, 0]
-    return x[:, 0:-2] * k + x[:, 1:-1] * k + x[:, 2:] * k
+def _sep_conv(img, k):
+    """Separable filter with the taps `k` (a sequence of floats), edge-padded,
+    rows then columns; each pass sums its taps in order, as the JAX
+    `_sep_conv` does."""
+    pad = len(k) // 2
+    h, w = img.shape
+    x = torch.nn.functional.pad(img[None, None], (0, 0, pad, pad), mode="replicate")[0, 0]
+    acc = x[0:h] * float(k[0])
+    for i in range(1, len(k)):
+        acc = acc + x[i: i + h] * float(k[i])
+    x = torch.nn.functional.pad(acc[None, None], (pad, pad, 0, 0), mode="replicate")[0, 0]
+    acc = x[:, 0:w] * float(k[0])
+    for i in range(1, len(k)):
+        acc = acc + x[:, i: i + w] * float(k[i])
+    return acc
+
+
+_K3 = (1.0 / 3.0,) * 3  # the Shi-Tomasi structure tensor's box filter
+
+
+def _bilinear(img, x, y):
+    """Bilinear samples of `img` [H,W] at (x, y): the top-left corner is
+    clipped into [0, W−2] × [0, H−2] but the fractions are not, so a point
+    outside the image blends the border pixels with its own fractions (the
+    JAX `_bilinear`, term for term)."""
+    h, w = img.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    dx = x - x0
+    dy = y - y0
+    x0i = torch.clamp(x0.to(torch.int64), 0, w - 2)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 2)
+    i00 = img[y0i, x0i]
+    i01 = img[y0i, x0i + 1]
+    i10 = img[y0i + 1, x0i]
+    i11 = img[y0i + 1, x0i + 1]
+    return (i00 * (1 - dx) * (1 - dy) + i01 * dx * (1 - dy)
+            + i10 * (1 - dx) * dy + i11 * dx * dy)
 
 
 # ---------------------------------------------------------------- detection
@@ -91,9 +122,9 @@ def shi_tomasi_grid(img, occupied_uv, occupied_valid, cell: int, max_out: int):
     py = torch.nn.functional.pad(img[None, None], (0, 0, 1, 1), mode="replicate")[0, 0]
     gx = (px[:, 2:] - px[:, :-2]) * 0.5
     gy = (py[2:, :] - py[:-2, :]) * 0.5
-    a = _sep_conv3(gx * gx)
-    b = _sep_conv3(gx * gy)
-    c = _sep_conv3(gy * gy)
+    a = _sep_conv(gx * gx, _K3)
+    b = _sep_conv(gx * gy, _K3)
+    c = _sep_conv(gy * gy, _K3)
     tr = 0.5 * (a + c)
     det = torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0))
     score = tr - det

@@ -8,6 +8,7 @@ Every entry point runs on the card unless its `device=` names another.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -95,8 +96,8 @@ def _clahe(img, clip=3.0, tiles=8):
 
 
 def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool = True,
-              loop_closure: bool = False, max_frames: int | None = None, progress: bool = False,
-              pipeline: bool = True, burst: int = 0, device=None):
+              loop_closure: bool | None = None, max_frames: int | None = None,
+              progress: bool = False, pipeline: bool = True, burst: int = 0, device=None):
     """Streaming pipeline on an EuRoC ASL sequence: image → CLAHE → point
     and line frontends → IMU pairing → estimator. Runs on the card unless
     `device` says otherwise.
@@ -111,19 +112,26 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     and defers each solve's readback to the next published frame; the
     trajectory is identical to `pipeline=False`.
 
-    Returns (ts, ps, qs, estimator, None)."""
-    if loop_closure:
-        raise NotImplementedError(
-            "run_euroc(loop_closure=True): loop closure is ROADMAP queue 1 items 12-13 (slice D)")
+    Loop closure (`loop_closure`, by default `config.loop.loop_closure`):
+    every solved keyframe enters the pose graph with its CLAHE'd image and
+    the estimator's window points; a confirmed loop starts the
+    relocalization round trip (`set_relo_frame` → the next joint solve →
+    `update_loop_edge`), the 4-DoF PGO runs when an edge is pending, and
+    every emitted pose is drift-corrected. The map is loaded and saved as
+    `config.loop` says.
+
+    Returns (ts, ps, qs, estimator, pose graph or None)."""
     if burst:
         raise NotImplementedError(
             "run_euroc(burst>0): offline burst replay is ROADMAP queue 1 item 14 (slice E)")
     from plslam_torch.io.euroc import EurocSequence
     from plslam_torch.models.frontend_lines import FrontendLines
     from plslam_torch.models.frontend_points import FrontendPoints
-    from plslam_torch.ops.cameras import make_camera
+    from plslam_torch.models.pose_graph import PoseGraph
+    from plslam_torch.ops.cameras import make_camera, normalized_to_pixel
 
     config = config or PLSlamConfig()
+    loop_closure = config.loop.loop_closure if loop_closure is None else loop_closure
     tr = config.tracker
     if tr.fisheye and tr.fisheye_mask:
         raise NotImplementedError("run_euroc: fisheye mask images are not ported yet")
@@ -135,6 +143,16 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
                         min_score=tr.min_score, fisheye=tr.fisheye, device=est.device)
     f_lines = (FrontendLines(cam, max_lines=tr.max_lines, binary_desc=tr.line_desc == "binary",
                              device=est.device) if use_lines else None)
+    pgraph = (PoseGraph(config.loop, focal=config.solver.focal_length,
+                        R_bc=np.asarray(config.extrinsic.rot).reshape(3, 3),
+                        p_bc=np.asarray(config.extrinsic.trans), device=est.device)
+              if loop_closure else None)
+    if pgraph is not None and config.loop.load_previous_pose_graph:
+        pg_file = config.loop.pose_graph_save_path
+        if os.path.isdir(pg_file):
+            pg_file = os.path.join(pg_file, "pose_graph.npz")
+        if os.path.exists(pg_file):
+            pgraph.load(pg_file)
     stride = max(1, round(20 / tr.freq))
     max_pub = max_frames if max_frames is not None else len(seq.cam_t)
 
@@ -152,14 +170,51 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     ts_out, ps_out, qs_out = [], [], []
     feeder = ImuFeeder(seq.imu_t, seq.imu_acc, seq.imu_gyr)
     deferred = None
+    relo_edge = {"ij": None}  # the loop edge awaiting the refined relative pose
 
-    def _emit(m):
-        """Trajectory output of a published frame (one published frame later
-        in pipeline mode — `latest_pose()` finalizes the deferred solve)."""
+    def _emit(ctx):
+        """Trajectory and pose-graph output of a published frame, with that
+        frame's own image (one published frame later in pipeline mode —
+        `latest_pose()` finalizes the deferred solve)."""
+        m, img_k = ctx
         est.finalize()
+        # the relocalization round trip closes (`updateKeyFrameLoop`): the
+        # joint solve's refined old-keyframe pose replaces the raw PnP edge
+        if pgraph is not None and est.relo_result is not None and relo_edge["ij"] is not None:
+            oi, cj = relo_edge["ij"]
+            pgraph.update_loop_edge(oi, cj, est.relo_result["p_old"], est.relo_result["q_old"])
+            relo_edge["ij"] = None
+            est.relo_result = None
+        elif relo_edge["ij"] is not None and est.relo is None and est.relo_result is None:
+            # the round trip died (failure detection cleared the estimator):
+            # the raw PnP measurement stands
+            relo_edge["ij"] = None
         if "cost" not in m or m.get("failure") or not est.initialized:
             return
         tt, p, q = est.latest_pose()
+        if pgraph is not None and m.get("keyframe"):
+            ids_w, norm_w, pts3d_w = est.window_points()
+            uv_w = None
+            if len(ids_w):
+                # a fixed max_features buffer, as the JAX runner projects it
+                buf = np.zeros((config.solver.max_features, 2))
+                buf[: len(ids_w)] = norm_w
+                uv_all = normalized_to_pixel(cam, torch.as_tensor(buf, dtype=torch.float32))
+                uv_w = uv_all.numpy().astype(np.float64)[: len(ids_w)]
+            loop = pgraph.add_keyframe(tt, p, q, img=img_k, cam=cam, win_uv=uv_w,
+                                       win_pts3d=pts3d_w, win_ids=ids_w)
+            if loop is not None and pgraph.last_match is not None:
+                # relocalization feedback (`setReloFrame`): the next solve
+                # refines the loop jointly
+                mm = pgraph.last_match
+                if est.set_relo_frame(mm["ids"], mm["obs_old"], mm["p_old"], mm["q_old"]):
+                    relo_edge["ij"] = (mm["old_idx"], mm["cur_idx"])
+            if loop is not None and config.loop.fast_relocalization and loop["i"] < pgraph.base_n:
+                pgraph.fast_relocalize(loop)  # the edge lands in the loaded map
+        if pgraph is not None:
+            if pgraph._pending_opt:
+                pgraph.optimize()
+            p, q = pgraph.correct(p, q)  # every published pose, not only keyframes
         ts_out.append(tt)
         ps_out.append(p)
         qs_out.append(q)
@@ -203,18 +258,28 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             feeder.feed_until(est, t)
             m = est.process_frame(t, ids, pts, vel, ln_ids, ln_segs, defer_solve=pipeline)
             if pipeline:
-                deferred = m
+                deferred = (m, img)
             else:
-                _emit(m)
+                _emit((m, img))
             if progress and k % 100 == 0:
                 print(f"[{k}] t={t:.2f} init={est.initialized} pts={m.get('n_pts')} "
                       f"lines={m.get('n_lines')}")
         if deferred is not None:
             _emit(deferred)  # drain the last in-flight solve
+        if pgraph is not None and pgraph._pending_opt:
+            # a loop on the final published frame still gets its 4-DoF solve,
+            # on the raw PnP edge
+            pgraph.optimize()
     finally:
         if executor is not None:
             executor.shutdown(wait=True, cancel_futures=True)
-    return np.asarray(ts_out), np.asarray(ps_out), np.asarray(qs_out), est, None
+    if pgraph is not None and config.loop.save_pose_graph:
+        pg_file = config.loop.pose_graph_save_path
+        if not pg_file.endswith(".npz"):
+            os.makedirs(pg_file, exist_ok=True)
+            pg_file = os.path.join(pg_file, "pose_graph.npz")
+        pgraph.save(pg_file)
+    return np.asarray(ts_out), np.asarray(ps_out), np.asarray(qs_out), est, pgraph
 
 
 def run_synthetic(seq, config: PLSlamConfig | None = None, oracle_init: bool = False,

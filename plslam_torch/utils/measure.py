@@ -1,8 +1,9 @@
 """What the card check (`chip_smoke.py`) and the timing scripts under
 `scripts/` share: the card's name and power limit, CUDA-event, profiler and
-host timing, the LK kernel's inputs at the main path's shapes, and the
+host timing, the LK kernel's inputs at the main path's shapes, the
 PyTorch library calls that compute the Hamming matrix (a yardstick only: no
-path of the port calls them)."""
+path of the port calls them), and the pose graph's solve timed eagerly and
+through CUDA graphs."""
 from __future__ import annotations
 
 import subprocess
@@ -196,3 +197,45 @@ def ms_in_turns(fns, reps=200, rounds=5):
         for name, fn in fns.items():
             times[name].append(cuda_time_ms(fn, reps=reps))
     return times
+
+
+def pgo_graph_vs_eager(pg, iters=12, rounds=2):
+    """The run's dense PGO calls replayed on the card two ways, in turns:
+    eagerly, and through one CUDA graph per (K, Ep) bucket recorded at the
+    bucket's first call (a fresh set of graphs each pass, as in a run).
+    Call c solves the first E edges of `pg`'s final graph at K node slots,
+    as the run's c-th `optimize` did (from the final poses). Each call is
+    timed on the host from packing its inputs to reading the solution back.
+    Returns {"eager": [[ms a call] a pass], "graph": [[ms a call] a pass],
+    "pack": [ms a call]}: `rounds` passes of each way."""
+    from plslam_torch.models.pose_graph import _PCG_THRESHOLD, _pow2_at_least, optimize_4dof
+    from plslam_torch.utils import cuda_graph
+
+    calls = [(K, E) for K, E, _ in pg.times["optimize"] if K < _PCG_THRESHOLD]
+    edges, n = pg.edges, pg.n
+    out = {"eager": [], "graph": [], "pack": []}
+
+    def solve(K, E, graphs):
+        pg.edges = edges[:E]
+        pg.n = 1 + max(max(e["i"], e["j"]) for e in pg.edges)
+        Ep = _pow2_at_least(E)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = pg.pgo_inputs(K, Ep)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        xyz, yaw, _ = cuda_graph.run(graphs, ("optimize_4dof", K, Ep, iters),
+                                     lambda *a: optimize_4dof(*a, iters=iters), *args)
+        xyz.cpu(), yaw.cpu()
+        return 1e3 * (time.perf_counter() - t0), 1e3 * (t1 - t0)
+
+    try:
+        for _ in range(rounds):
+            graphs = {}
+            out["graph"].append([solve(K, E, graphs)[0] for K, E in calls])
+            eager = [solve(K, E, None) for K, E in calls]
+            out["eager"].append([ms for ms, _ in eager])
+            out["pack"] = [pack for _, pack in eager]
+    finally:
+        pg.edges, pg.n = edges, n
+    return out

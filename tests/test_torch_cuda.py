@@ -1,7 +1,9 @@
 """Port tests that need the card: the LK and Hamming kernels against their
-plain versions, the CUDA-graph LM solve against the eager one, the line
-frontend's tick and the synthetic runner (points only and with lines) on
-the card against the CPU. No JAX here (the machine with the card has none);
+plain versions, the CUDA-graph LM solve against the eager one (also
+replayed with relo factors), the line frontend's tick, the synthetic
+runner (points only and with lines), the keyframe features and a
+`PoseGraph` replay with loops (its BRIEF searches counted as Hamming
+launches) on the card against the CPU. No JAX here (the machine with the card has none);
 run them there with
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
@@ -13,7 +15,9 @@ Hamming distances exact; CUDA-graph replays run the eager calls' kernels: states
 absolute and prior information 1e-4 of its scale in float32 (the library
 may choose other reduction orders under capture); the line tick in float64
 on both devices: ids exact, segments 1e-8 (sums in another order); CPU vs
-card run_synthetic 1e-6 m in float64.
+card run_synthetic 1e-6 m in float64; keyframe descriptors equal but at
+BRIEF ties, global descriptors 1e-5; the float32 pose graph's edges and
+optimized poses 1e-4.
 """
 import numpy as np
 import pytest
@@ -196,3 +200,96 @@ def test_run_synthetic_lines_card_matches_cpu(dev):
     assert max(m.get("n_lines", 0) for m in gpu[3].metrics) > 0
     np.testing.assert_array_equal(gpu[0], cpu[0])
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-6)
+
+
+def test_keyframe_features_card_matches_cpu(dev):
+    """Shi-Tomasi + BRIEF + the global descriptor on the card against the
+    CPU: the same corners, words equal except at BRIEF ties (|va − vb| <
+    1e-5), global descriptors within 1e-5."""
+    from plslam_torch.models import keyframe_db as kdb
+    from plslam_torch.utils import measure
+
+    rng = np.random.default_rng(5)
+    img = measure.shifted_texture(rng, 240, 320, 0.0, 0.0)[0]
+    extra = rng.uniform([0, 0], [320, 240], (100, 2))
+    extra[:3] = [[1.0, 1.0], [318.5, 2.0], [3.0, 238.0]]
+    g = kdb.extract_keyframe_features(torch.as_tensor(img, device=dev), extra_uv=extra)
+    c = kdb.extract_keyframe_features(torch.as_tensor(img), extra_uv=extra)
+    np.testing.assert_array_equal(g[0], c[0])
+    np.testing.assert_array_equal(g[1], c[1])
+    va, vb = kdb._brief_tests(torch.as_tensor(img), torch.as_tensor(c[0]))
+    ties = ((va - vb).abs() < 1e-5).numpy()
+    bits = lambda d: np.unpackbits(d.view(np.uint8), bitorder="little").reshape(-1, 256)  # noqa: E731
+    assert not ((bits(g[2]) != bits(c[2])) & ~ties).any()
+    np.testing.assert_allclose(g[3], c[3], rtol=0, atol=1e-5)
+
+
+def test_pose_graph_replay_card_matches_cpu(dev):
+    """`tests/loop_scene.py`'s keyframes through `PoseGraph` on the card and
+    on the CPU: the same candidates and outcomes; edges, optimized poses and
+    drift within 1e-4 (float32 PGO, other summation orders); the card's
+    BRIEF searches are Hamming launches, one for every candidate that
+    reached the descriptor match, and the PGO runs as often on both."""
+    import loop_scene
+    from plslam_torch.config import LoopConfig
+    from plslam_torch.models.pose_graph import PoseGraph
+    from plslam_torch.ops.kernels import hamming
+
+    seq, cam = loop_scene.sequence(), loop_scene.camera()
+    R_bc, p_bc = loop_scene.extrinsic(seq)
+    cfg = LoopConfig(loop_closure=True, min_loop_gap=40, max_keyframes=128)
+    graphs = {d: PoseGraph(cfg, focal=loop_scene.F, R_bc=R_bc, p_bc=p_bc, device=d)
+              for d in (dev, "cpu")}
+    n0 = hamming.LAUNCHES
+    for t, p, q, img, uv, ids, pts in loop_scene.keyframes(seq, cam):
+        for g in graphs.values():
+            g.add_keyframe(t, p, q, img=img, cam=cam, win_uv=uv, win_pts3d=pts, win_ids=ids)
+            if g._pending_opt:
+                g.optimize()
+    gg, gc = graphs[dev], graphs["cpu"]
+    searched = [r for r in gg.stats if r["outcome"] not in ("no_window_points", "no_descriptors")]
+    assert hamming.LAUNCHES - n0 == len(searched) > 20
+    assert gg.loop_count == gc.loop_count >= 5
+    assert [(r["i"], r["j"], r["outcome"]) for r in gg.stats] == \
+        [(r["i"], r["j"], r["outcome"]) for r in gc.stats]
+    for a, b in zip(gg.edges, gc.edges):
+        assert (a["i"], a["j"], a["loop"]) == (b["i"], b["j"], b["loop"])
+        np.testing.assert_allclose(a["t"], b["t"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gg.opt_p[: gg.n], gc.opt_p[: gc.n], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gg.opt_yaw[: gg.n], gc.opt_yaw[: gc.n], rtol=0, atol=1e-4)
+    assert abs(gg.yaw_drift - gc.yaw_drift) < 1e-4
+    assert len(gg.times["optimize"]) == len(gc.times["optimize"]) >= gg.loop_count
+
+
+def test_lm_graph_with_relo_matches_eager(dev):
+    """The LM's CUDA graph, recorded on a frame without relo factors
+    (`relo_valid` = 0), replayed on one with them (`relo_valid` = 1, a
+    perturbed old-keyframe pose): equal to the eager solve (1e-5, float32),
+    and the relo pose moves, so the factors took part in the replay."""
+    from plslam_torch.config import PLSlamConfig, SolverConfig
+    from plslam_torch.io import synthetic
+    from plslam_torch.models import solver
+    from plslam_torch.runner import run_synthetic
+    from plslam_torch.utils.cuda_graph import CudaGraph
+
+    seq = synthetic.make_sequence(duration=2.0, n_points=80, n_lines=16, seed=3)
+    cfg = PLSlamConfig(solver=SolverConfig(max_features=48, max_line_feats=8))
+    _, _, _, est = run_synthetic(seq, cfg, oracle_init=True, max_frames=14, device=dev)
+    st, f = est._device_state(), est._factors()
+    assert float(f.relo_valid) == 0.0
+    graph = CudaGraph(lambda s, f_: solver.optimize_window(s, f_, est.lay, est.cfg), st, f)
+    # the old keyframe: window slot 0, which saw every feature that starts there
+    first = (f.pt_start == 0).to(f.pt_mask.dtype) * f.pt_mask[:, 0]
+    f_relo = f._replace(relo_obs=f.pt_obs[:, 0].clone(), relo_mask=first,
+                        relo_valid=torch.ones_like(f.relo_valid))
+    st_relo = st._replace(relo_p=st.p[0] + torch.tensor([0.03, -0.02, 0.01], device=dev),
+                          relo_q=st.q[0].clone())
+    assert float(first.sum()) >= 8
+    eager, eager_stats = solver.optimize_window(st_relo, f_relo, est.lay, est.cfg)
+    out, stats = graph(st_relo, f_relo)
+    for a, b in zip(out, eager):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert int(stats.accepted) == int(eager_stats.accepted)
+    assert float((out.relo_p - st_relo.relo_p).norm()) > 1e-3
+    plain, _ = graph(st, f)  # and back: the same graph without relo factors
+    torch.testing.assert_close(plain.relo_p, st.relo_p, rtol=0, atol=0)

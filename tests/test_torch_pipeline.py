@@ -2,8 +2,9 @@
 deferred solve readback) gives the same trajectory as the synchronous loop,
 the slice runs with JAX and the JAX package blocked (as on the machine with
 the card), neither the package nor the chip smoke script imports JAX or
-`plslam`, the entry points default to the card (and raise without one),
-and the parts not ported yet raise a clear `NotImplementedError`."""
+`plslam`, the entry points default to the card (and raise without one), and burst
+replay, not ported yet, raises a clear `NotImplementedError`. Loop closure
+across sessions is held against JAX in `test_torch_map.py`."""
 import ast
 import os
 import subprocess
@@ -43,7 +44,6 @@ def test_pipeline_matches_synchronous(dataset):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(loop_closure=True), "items 12-13"),
     (dict(burst=16), "item 14"),
 ])
 def test_run_euroc_unported_options_raise(kwargs, item):

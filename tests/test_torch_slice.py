@@ -7,11 +7,13 @@ Tolerances:
     forward-mode AD in both packages, the numpy RNG drawn in the same order);
   * rendered images within 1/255 (one 8-bit PNG quantization step);
   * `run_euroc`: both initialize, both ATEs < 0.4 m and within 0.05 m of
-    each other. Both track with the same LK formulation (each package's
+    each other, with loop closure off and on (the JAX default). Both track with the same LK formulation (each package's
     default, `lk_track_fast`) but draw different RANSAC samples, so
     trajectories are compared, not bits; they were 0.0076 m apart (JAX
     0.0213 m, port 0.0289 m, one run on a CPU).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -100,6 +102,28 @@ def test_run_euroc_matches_jax(tmp_path):
                                        loop_closure=False, device="cpu")
     assert jest.initialized and test.initialized
     assert len(tts) > 20 and len(jts) > 20
+    j_ate = ate_rmse(jts, jps, gt_t, gt_p, align="yaw")
+    t_ate = ate_rmse(tts, tps, gt_t, gt_p, align="yaw")
+    assert j_ate < 0.4 and t_ate < 0.4, (j_ate, t_ate)
+    assert abs(t_ate - j_ate) < 0.05, (j_ate, t_ate)
+
+
+def test_run_euroc_loop_closure_matches_jax(tmp_path):
+    """The same comparison with loop closure on, as each package's
+    `run_euroc` defaults to it from `config.loop`: every solved keyframe
+    enters both pose graphs with its image (the 5-s run is too short for a
+    loop, so the corrected poses are the VIO poses)."""
+    seq = small_dataset(tmp_path, 5.0)
+    cfg = dataclasses.replace(small_config(seq), loop=LoopConfig(loop_closure=True))
+    gt_t, gt_p = seq.frame_t.numpy(), seq.gt_p.numpy()
+    jts, jps, _, jest, jpg = j_run_euroc(str(tmp_path), cfg, use_lines=False)
+    tts, tps, _, test, tpg = t_run_euroc(str(tmp_path), config_from_jax(cfg), use_lines=False,
+                                         device="cpu")
+    assert jest.initialized and test.initialized
+    assert len(tts) > 20 and len(jts) > 20
+    assert tpg.n == tpg.db.n and jpg.n == jpg.db.n
+    assert tpg.n > 10 and abs(tpg.n - jpg.n) <= 1, (tpg.n, jpg.n)
+    assert tpg.loop_count == jpg.loop_count == 0
     j_ate = ate_rmse(jts, jps, gt_t, gt_p, align="yaw")
     t_ate = ate_rmse(tts, tps, gt_t, gt_p, align="yaw")
     assert j_ate < 0.4 and t_ate < 0.4, (j_ate, t_ate)

@@ -59,13 +59,31 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      Logged: loops, candidate outcomes, loop gaps, per-keyframe
      `add_keyframe` ms, `_find_connection` ms (PnP apart), `optimize` ms
      at the K and E it reached, and the search's Hamming device µs.
-  7. one JSON line of kernel results (a row for the loop search's Hamming
-     launches beside the line matcher's), then the last line
-     {"ok": true, "device": {...}}.
+  7. burst replay: the smoke set through streaming and through
+     `run_euroc(burst=8)` in turns (streaming, burst, burst, streaming):
+     camera frames/s, frames in burst, chunks, fallbacks and their reasons,
+     chunk ms; each burst run held to `tests/test_torch_burst.py`'s bounds
+     against the first streaming run, ATE < 0.4 m, LK launches = tracked
+     frames and Hamming launches = published frames. Every LK and Hamming
+     call that the first burst run's steps make is kept and held against
+     the kernel's plain version on its inputs (LK as in phase 3, Hamming bit
+     for bit); the kernel, its plain version and the library call are timed
+     on the last call's inputs, for the burst rows of the kernels line.
+     Then the host's waits on the card (PyTorch's sync debug mode,
+     stamped) over 40 published frames of each, per published frame and
+     inside each chunk, the first chunk's by line; the device's busy share
+     inside each chunk of a 40-frame burst run (`torch.profiler` per
+     chunk) and its kernels; then the loop scene's full-width configuration
+     with loop closure in burst: at least one loop, ATE < 0.4 m, LK =
+     tracked frames, Hamming = published frames + keyframe searches.
+  8. one JSON line of kernel results (rows for the burst run's LK and
+     Hamming calls and the loop search's beside the main path's), then
+     the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -753,6 +771,328 @@ def run_loop_scene(dev):
     return searched, max(err_a, err_b)
 
 
+BURST = 8  # published frames a chunk (phase 7)
+SYNC_FRAMES = 40  # published frames of the sync-counted runs: init, 7 solves, 2 chunks, a tail
+
+
+def burst_vs_streaming(label, stream, burst):
+    """`tests/test_torch_burst.py`'s bounds between a burst run and a
+    streaming run of the same frames; raises on a miss."""
+    (ts_s, ps_s, _, est_s, _), (ts_b, ps_b, _, est_b, _) = stream, burst
+    if len(ts_b) != len(ts_s) or not np.allclose(ts_b, ts_s, atol=1e-9, rtol=0):
+        raise AssertionError(f"({label}) burst emitted other timestamps than streaming")
+    dp = np.linalg.norm(np.asarray(ps_b) - np.asarray(ps_s), axis=1)
+    _, p_last, _ = est_b.latest_pose()
+    checks = {"max |Δp| < 0.1 m": dp.max() < 0.1, "median |Δp| < 1e-2 m": np.median(dp) < 1e-2,
+              "last 8 |Δp| < 2e-2 m": dp[-8:].max() < 2e-2,
+              "slot timestamps equal": np.allclose(est_b.timestamps, est_s.timestamps, atol=1e-9,
+                                                   rtol=0),
+              "latest_pose() = last emitted": np.allclose(p_last, ps_b[-1], atol=1e-9, rtol=0)}
+    log(f"  ({label}) burst vs streaming: max |Δp| {dp.max():.3e} m, median {np.median(dp):.3e} m, "
+        f"last 8 {dp[-8:].max():.3e} m")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"({label}) burst vs streaming: {failed}")
+    return dp
+
+
+def burst_run(dev, path, cfg, meta, burst, max_frames=None, loop=False):
+    """One `run_euroc` (burst=0: streaming) with the launch counts set to 0
+    just before it. Returns (outputs, launches, wall s, camera frames, burst
+    log, ATE)."""
+    import torch
+
+    from plslam_torch import runner
+    from plslam_torch.eval.metrics import ate_rmse
+    from plslam_torch.ops.kernels import hamming, lk
+
+    blog = []
+    n_cam, _ = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))), max_frames)
+    lk.LAUNCHES = hamming.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.run_euroc(path, cfg, use_lines=True, loop_closure=loop, max_frames=max_frames,
+                           burst=burst, burst_log=blog, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"lk_track": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
+    ate = float(ate_rmse(out[0], out[1], meta["gt_t"], meta["gt_p"], align="yaw"))
+    return out, launches, wall, n_cam, blog, ate
+
+
+@contextlib.contextmanager
+def burst_kernel_calls():
+    """Keep every LK and Hamming kernel call that the burst steps make while
+    the block runs (calls outside `BurstStep.run_chunk`, the streamed
+    frames', are not kept): the wrapper's arguments and the outputs it
+    returned, copied on the card, which waits for nothing. Yields
+    {"lk_track": [(args, kwargs, outputs)], "hamming_matrix": [...]}."""
+    import torch
+
+    from plslam_torch.models import burst
+    from plslam_torch.ops.kernels import hamming, lk
+
+    calls = {"lk_track": [], "hamming_matrix": []}
+    inside = [False]
+    run_chunk, lk_cuda, ham_cuda = (burst.BurstStep.run_chunk, lk.lk_track_cuda,
+                                    hamming.hamming_matrix_cuda)
+
+    def copy(x):
+        if isinstance(x, (list, tuple)):
+            return [copy(y) for y in x]
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def kept(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if inside[0]:
+                calls[name].append((copy(args), copy(kwargs), copy(out)))
+            return out
+        return call
+
+    def chunk(self, *args):
+        inside[0] = True
+        try:
+            return run_chunk(self, *args)
+        finally:
+            inside[0] = False
+
+    burst.BurstStep.run_chunk = chunk
+    lk.lk_track_cuda = kept("lk_track", lk_cuda)
+    hamming.hamming_matrix_cuda = kept("hamming_matrix", ham_cuda)
+    try:
+        yield calls
+    finally:
+        burst.BurstStep.run_chunk = run_chunk
+        lk.lk_track_cuda, hamming.hamming_matrix_cuda = lk_cuda, ham_cuda
+
+
+def hold_burst_calls(calls):
+    """Each kept burst call's output against the kernel's plain version on
+    its inputs — LK at phase 3's tolerance (positions within POS_TOL_PX
+    where both track, the status equal away from the error gate), Hamming
+    bit for bit — then the kernel, its plain version and, for Hamming, the
+    library calls timed on the inputs of the last kept call, with the bound
+    from those inputs. Raises after logging every miss. Returns the
+    kernels-line numbers by kernel."""
+    import inspect
+
+    import torch
+
+    from plslam_torch.ops.kernels import hamming, lk
+    from plslam_torch.utils.measure import cuda_time_ms, hamming_library, ms_in_turns
+
+    if not calls["lk_track"] or not calls["hamming_matrix"]:
+        raise AssertionError(f"burst made {len(calls['lk_track'])} LK and "
+                             f"{len(calls['hamming_matrix'])} Hamming kernel calls")
+    sig = inspect.signature(lk.lk_track_cuda)
+
+    def lk_plain(args, kwargs):
+        a = sig.bind(*args, **kwargs)
+        a.apply_defaults()
+        a = a.arguments
+        plain = lk.lk_track_fast_torch if a["formulation"] == "fast" else lk.lk_track_torch
+        return a, lambda: plain(a["pyr_prev"], a["pyr_cur"], a["pts_prev"], a["valid"],
+                                a["levels"], a["iters"], a["err_thresh"])
+
+    lk_err, misses, tracked = 0.0, [], 0
+    for i, (args, kwargs, (k_out, k_st, _)) in enumerate(calls["lk_track"]):
+        a, plain = lk_plain(args, kwargs)
+        p_out, p_st, p_err = plain()
+        both = k_st & p_st
+        diff = float((k_out - p_out).abs().amax(dim=1)[both].max()) if bool(both.any()) else 0.0
+        near_gate = (p_err - a["err_thresh"]).abs() < 1e-4
+        status_ok = bool(torch.equal(k_st[~near_gate], p_st[~near_gate]))
+        lk_err, tracked = max(lk_err, diff), tracked + int(both.sum())
+        if diff > POS_TOL_PX or not status_ok:
+            misses.append(f"LK call {i}: max |Δpos| {diff:.3e} px, status equal away from the "
+                          f"gate {status_ok}")
+    ham_err, shapes = 0, collections.Counter()
+    for i, ((d1, d2), _, k) in enumerate(calls["hamming_matrix"]):
+        p = hamming.hamming_matrix_torch(d1, d2)
+        err = int((k.to(torch.int64) - p).abs().max()) if k.numel() else 0
+        ham_err, shapes[tuple(k.shape)] = max(ham_err, err), shapes[tuple(k.shape)] + 1
+        if k.dtype != torch.int32 or not torch.equal(k, p):
+            misses.append(f"Hamming call {i} at {tuple(k.shape)}: max |Δ| {err}")
+    log(f"  (burst) held {len(calls['lk_track'])} LK calls ({tracked} points tracked by both, "
+        f"max |Δpos| {lk_err:.3e} px) and {len(calls['hamming_matrix'])} Hamming calls (shapes "
+        f"{dict(shapes)}, max |Δ| {ham_err}) against their plain versions")
+    for miss in misses:
+        log(f"  (burst) MISS {miss}")
+    if misses:
+        raise AssertionError(f"{len(misses)} burst kernel calls disagree with their plain versions")
+
+    args, kwargs, _ = calls["lk_track"][-1]
+    a, plain = lk_plain(args, kwargs)
+    ms = cuda_time_ms(lambda: lk.lk_track_cuda(*args, **kwargs), reps=200)
+    plain_ms = cuda_time_ms(plain)
+    bound_ms, bound_by = lk_track_bound(a["pyr_prev"], a["pyr_cur"], a["pts_prev"], a["valid"],
+                                        a["formulation"], a["iters"])
+    rows = {"lk_track": dict(max_abs_err=lk_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)}
+    log(f"  (burst) LK on the last call's inputs ({a['pts_prev'].shape[0]} points): {ms:.5f} ms "
+        f"by CUDA events; plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})")
+    (d1, d2), _, _ = calls["hamming_matrix"][-1]
+    lib, _ = hamming_library(d1, d2)
+    rounds = ms_in_turns({"kernel": lambda: hamming.hamming_matrix_cuda(d1, d2), **lib})
+    mean = {name: sum(r) / len(r) for name, r in rounds.items()}
+    ms = mean.pop("kernel")
+    best = min(mean, key=mean.get)
+    plain_ms = cuda_time_ms(lambda: hamming.hamming_matrix_torch(d1, d2))
+    bound_ms, bound_by = hamming_bound(len(d1), len(d2))
+    rows["hamming_matrix"] = dict(max_abs_err=float(ham_err), ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, library_ms=mean[best])
+    log(f"  (burst) Hamming on the last call's inputs ({len(d1)}×{len(d2)}): {ms:.5f} ms by CUDA "
+        f"events (mean of {len(rounds['kernel'])} rounds in turns), {best} {mean[best]:.5f} ms; "
+        f"plain {plain_ms:.5f} ms; bound {bound_ms:.3e} ms ({bound_by})")
+    return rows
+
+
+def describe_burst(label, run):
+    """Log a run's frames/s, its burst frames, chunks and fallbacks."""
+    (ts, _, _, est, _), launches, wall, n_cam, blog, ate = run
+    chunks = [e for e in blog if "fallback" not in e]
+    fallbacks = collections.Counter(e["fallback"] for e in blog if "fallback" in e)
+    n_burst = sum(1 for m in est.metrics if m.get("burst"))
+    chunk_ms = [1e3 * e["chunk_s"] for e in chunks]
+    log(f"  ({label}) {n_cam} camera frames in {wall:.2f} s = {n_cam / wall:.2f} camera frames/s; "
+        f"{len(ts)} emitted, {n_burst} in burst over {len(chunks)} chunks; fallbacks "
+        f"{dict(fallbacks)}; launches {launches}; ATE(yaw) {ate:.4f} m"
+        + (f"; chunk ms median {np.median(chunk_ms):.1f} (min {min(chunk_ms):.1f}, max "
+           f"{max(chunk_ms):.1f}) = {np.median(chunk_ms) / BURST:.1f} ms a published frame, "
+           f"decode wait ms median {1e3 * np.median([e['decode_wait_s'] for e in chunks]):.2f}"
+           if chunks else ""))
+    return n_burst, len(chunks), fallbacks
+
+
+def count_syncs(dev, path, cfg, meta, burst):
+    """A run over SYNC_FRAMES published frames with every wait of the host on
+    the card stamped: the waits inside each chunk (from its prefetch wait to
+    its readback) and, for streaming, the waits per published frame."""
+    from plslam_torch.utils.measure import sync_stamps
+
+    with sync_stamps() as stamps:
+        (_, _, _, est, _), _, _, _, blog, _ = burst_run(dev, path, cfg, meta, burst,
+                                                        max_frames=SYNC_FRAMES)
+    chunks = [e for e in blog if "fallback" not in e]
+    per_chunk = [sum(1 for t, _ in stamps if e["t0"] <= t <= e["t1"]) for e in chunks]
+    sites = collections.Counter(os.path.relpath(site) for t, site in stamps
+                                if chunks and chunks[0]["t0"] <= t <= chunks[0]["t1"])
+    return len(stamps), len(est.metrics), per_chunk, sites
+
+
+def profile_burst_chunks(dev, path, cfg, meta, frames=SYNC_FRAMES):
+    """The device's busy share inside each burst chunk of a run over
+    `frames` published frames: every chunk's steps under their own
+    `torch.profiler` (device events only), its wall from the first
+    launch to a synchronize, and the kernels that fill it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plslam_torch.models import burst
+
+    run_chunk, shares, names = burst.BurstStep.run_chunk, [], collections.Counter()
+
+    def profiled(self, *args):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_chunk(self, *args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                busy += e.duration_ns()
+                names[e.name()[:60]] += e.duration_ns()
+        shares.append((wall, 1e-9 * busy))
+        return out
+
+    burst.BurstStep.run_chunk = profiled
+    try:
+        burst_run(dev, path, cfg, meta, BURST, max_frames=frames)
+    finally:
+        burst.BurstStep.run_chunk = run_chunk
+    for wall, busy in shares:
+        log(f"  (burst, profiled) chunk of {BURST}: wall {1e3 * wall:.1f} ms (profiler on), device "
+            f"busy {1e3 * busy:.1f} ms = {100 * busy / wall:.1f} %")
+    total = sum(names.values())
+    for name, ns in names.most_common(8):
+        log(f"    {ns / 1e6:8.1f} ms  {100 * ns / total:5.1f} %  {name}")
+
+
+def run_burst(dev):
+    """Phase 7: burst replay on the card. The smoke set through streaming and
+    through `burst=8` in turns, the first burst run's kernel calls held
+    against their plain versions; the bounds against streaming; the host's
+    waits counted; then the loop scene's full-width configuration with loop
+    closure in burst. Returns (the first burst run's launches, its kernels'
+    numbers by kernel)."""
+    import torch
+
+    path, _ = render_dataset()
+    meta = np.load(os.path.join(path, "meta.npz"))
+    cfg = smoke_config(meta)
+    n_cam, n_pub = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))))
+    runs = collections.defaultdict(list)
+    for i, (label, b) in enumerate((("streaming", 0), ("burst", BURST), ("burst", BURST),
+                                    ("streaming", 0))):
+        if i == 1:  # the run whose launches the kernels line reports
+            with burst_kernel_calls() as calls:
+                runs[label].append(burst_run(dev, path, cfg, meta, b))
+        else:
+            runs[label].append(burst_run(dev, path, cfg, meta, b))
+        describe_burst(label + (" (its kernel calls kept)" if i == 1 else ""), runs[label][-1])
+    for label in ("streaming", "burst"):
+        fps = [n / wall for _, _, wall, n, _, _ in runs[label]]
+        log(f"  {label}: camera frames/s {[round(f, 2) for f in fps]} (mean {np.mean(fps):.2f})")
+    stream = runs["streaming"][0][0]
+    for run in runs["burst"]:
+        n_burst, n_chunks, _ = describe_burst("burst, checked", run)
+        if n_burst == 0 or n_chunks < 2:
+            raise AssertionError(f"(burst) burst did not engage: {n_burst} frames")
+        burst_vs_streaming("burst", stream, run[0])
+        if not run[5] < ATE_LIMIT_M:
+            raise AssertionError(f"(burst) ATE {run[5]:.4f} m ≥ {ATE_LIMIT_M} m")
+        launches = run[1]
+        if launches != {"lk_track": n_cam - 1, "hamming_matrix": n_pub}:
+            raise AssertionError(f"(burst) launches {launches}: expected LK {n_cam - 1} "
+                                 f"(tracked frames), Hamming {n_pub} (published frames)")
+    burst_launches = runs["burst"][0][1]
+    rows = hold_burst_calls(calls)
+    del calls
+
+    for label, b in (("streaming", 0), ("burst", BURST)):
+        total, frames, per_chunk, sites = count_syncs(dev, path, cfg, meta, b)
+        log(f"  ({label}) host waits on the card over {SYNC_FRAMES} published frames: {total} "
+            f"({total / max(frames, 1):.1f} a published frame); inside each chunk of {BURST}: "
+            f"{per_chunk}" + (f"; the first chunk's by line: {dict(sites.most_common())}"
+                              if sites else ""))
+    profile_burst_chunks(dev, path, cfg, meta)
+
+    # the loop scene's full width with loop closure, in burst
+    lpath, _ = render_dataset("loop")
+    lmeta = np.load(os.path.join(lpath, "meta.npz"))
+    _, full = loop_configs(lmeta)
+    run = burst_run(dev, lpath, full, lmeta, BURST, loop=True)
+    (ts, ps, _, est, pg), launches, _, n_cam_l, blog, ate = run
+    n_burst, _, _ = describe_burst("loop scene (b), burst", run)
+    searched = [r for r in pg.stats if r["outcome"] not in ("no_window_points", "no_descriptors")]
+    refined = [e for e in pg.edges if e["loop"] and "t_pnp" in e]
+    log(f"  (loop scene (b), burst) keyframes {pg.n}, loops {pg.loop_count} ({len(refined)} refined "
+        f"by the relo round trip), searches reaching the match {len(searched)}")
+    if not (pg.loop_count >= 1 and n_burst > 0 and ate < ATE_LIMIT_M
+            and np.all(np.isfinite(ps)) and len(ts) >= MIN_POSES):
+        raise AssertionError(f"(loop scene (b), burst) loops {pg.loop_count}, burst frames "
+                             f"{n_burst}, ATE {ate:.4f} m, {len(ts)} poses")
+    n_pub_l = _published(n_cam_l)[1]
+    if launches != {"lk_track": n_cam_l - 1, "hamming_matrix": n_pub_l + len(searched)}:
+        raise AssertionError(f"(loop scene (b), burst) launches {launches}: expected LK "
+                             f"{n_cam_l - 1}, Hamming {n_pub_l} + {len(searched)} searches")
+    torch.cuda.synchronize()
+    return burst_launches, rows
+
+
 def main():
     import torch
 
@@ -790,6 +1130,9 @@ def main():
     log("phase 6: the loop scene, run_euroc(loop_closure=True) on the card")
     search_launches, search_err = run_loop_scene(dev)
 
+    log("phase 7: burst replay, run_euroc(burst=8) on the card")
+    burst_launches, burst_rows = run_burst(dev)
+
     print(json.dumps({"kernels": [
         {"name": "lk_track fast", "route": "cuda", "source": LK_SOURCE, "replaces": LK_FAST_REPLACES,
          "launches": launches["lk_track"], **lk_rows["fast"], "library_ms": None},
@@ -799,6 +1142,12 @@ def main():
         {"name": "hamming_matrix", "route": "cuda", "source": HAMMING_SOURCE,
          "replaces": HAMMING_REPLACES, "launches": launches["hamming_matrix"],
          **ham_rows[HAMMING_SHAPES[0]]},
+        {"name": "lk_track fast, burst", "route": "cuda", "source": LK_SOURCE,
+         "replaces": LK_FAST_REPLACES, "launches": burst_launches["lk_track"],
+         **burst_rows["lk_track"]},
+        {"name": "hamming_matrix, burst", "route": "cuda", "source": HAMMING_SOURCE,
+         "replaces": HAMMING_REPLACES, "launches": burst_launches["hamming_matrix"],
+         **burst_rows["hamming_matrix"]},
         {"name": "hamming_matrix loop search", "route": "cuda", "source": HAMMING_SOURCE,
          "replaces": HAMMING_REPLACES, "launches": search_launches,
          **{**ham_rows[128, 256],

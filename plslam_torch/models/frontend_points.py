@@ -211,8 +211,9 @@ def fundamental_ransac(p1, p2, valid, thresh, iters: int = 100, generator=None, 
     den = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2
     d = num / torch.clamp(den, min=1e-12)
     inl = (d < thresh * thresh) & valid[None, :]
-    best = torch.argmax(torch.sum(inl, dim=1))
-    return inl[best] & valid
+    best = torch.argmax(torch.sum(inl, dim=1), dim=0, keepdim=True)
+    # gathered by a 1-element index: a 0-dim one is read back to the host
+    return torch.index_select(inl, 0, best)[0] & valid
 
 
 # -------------------------------------------------------------------- ticks

@@ -10,6 +10,7 @@ relative and float32 survives.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -53,6 +54,19 @@ def _shift_perm(lay: TangentLayout):
     return perm
 
 
+@functools.lru_cache(maxsize=None)
+def _index_tensors(lay: TangentLayout, device):
+    """(drop, keep, shift perm) of MARGIN_OLD and (drop, keep) of
+    MARGIN_SECOND_NEW as index tensors on `device`, made once: a host array
+    copied to the card in every call would wait for the device's queue."""
+    drop, keep = _drop0_indices(lay)
+    nw = lay.nw
+    drop_new = np.arange((nw - 2) * 6, (nw - 1) * 6)  # pose slot NW-2
+    keep_new = np.setdiff1d(np.arange(lay.dim_cam), drop_new)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (drop, keep, _shift_perm(lay), drop_new, keep_new))
+
+
 def _eigh_sym(M):
     """eigh of the symmetric part of M, decomposed in float64 and cast back.
     MKL's float32 `ssyevd` fails to converge on some Jacobi-scaled,
@@ -77,8 +91,7 @@ def _sqrt_refactor(H, b, eps):
     return s[:, None] * V.T, s_inv * (V.T @ b)
 
 
-def _scatter_kept(J0k, r0k, keep, DC):
-    kt = torch.as_tensor(keep, device=J0k.device)
+def _scatter_kept(J0k, r0k, kt, DC):
     J0 = torch.zeros((DC, DC), dtype=J0k.dtype, device=J0k.device)
     J0[kt[:, None], kt[None, :]] = J0k
     r0 = torch.zeros((DC,), dtype=J0k.dtype, device=J0k.device)
@@ -165,8 +178,7 @@ def marginalize_old(state: WindowState, f: res.WindowFactors, lay: TangentLayout
            - torch.einsum("dmb,mb->d", BCl, b_l_raw * sc_l))
 
     # 2) eliminate frame-0 pose+speedbias (15 dims) with an eigh pseudo-inverse
-    drop, keep = _drop0_indices(lay)
-    dt_, kt = torch.as_tensor(drop, device=H_c.device), torch.as_tensor(keep, device=H_c.device)
+    dt_, kt, perm = _index_tensors(lay, H_c.device)[:3]
     H_dd = H_c[dt_][:, dt_]
     H_dk = H_c[dt_][:, kt]
     H_kk = H_c[kt][:, kt]
@@ -177,8 +189,7 @@ def marginalize_old(state: WindowState, f: res.WindowFactors, lay: TangentLayout
     # 3) √-refactor the KEPT block, scatter into DC dims, apply the shift
     #    perm to the columns ((J0[:,perm])ᵀ(J0[:,perm]) = H[perm][:,perm])
     J0k, r0k = _sqrt_refactor(H_new_k, b_new_k, eps)
-    J0, r0p = _scatter_kept(J0k, r0k, keep, DC)
-    perm = torch.as_tensor(_shift_perm(lay), device=H_c.device)
+    J0, r0p = _scatter_kept(J0k, r0k, kt, DC)
     # 4) un-scale J0's columns back to tangent units
     J0 = J0[:, perm] * (1.0 / sc[:DC][perm])[None, :]
 
@@ -198,7 +209,6 @@ def marginalize_second_new(state: WindowState, f: res.WindowFactors, lay: Tangen
     (its visual terms are discarded; its preintegration is merged by the
     caller — the reference's `slideWindowNew` path)."""
     eps = _eps(cfg, f.prior_J.dtype)
-    nw = lay.nw
     H = f.prior_J.T @ f.prior_J
     b = f.prior_J.T @ f.prior_r0
     dH = torch.diagonal(H)
@@ -206,16 +216,14 @@ def marginalize_second_new(state: WindowState, f: res.WindowFactors, lay: Tangen
     H = H * sc[:, None] * sc[None, :]
     b = b * sc
 
-    drop = np.arange((nw - 2) * 6, (nw - 1) * 6)  # pose slot NW-2
-    keep = np.setdiff1d(np.arange(lay.dim_cam), drop)
-    dt_, kt = torch.as_tensor(drop, device=H.device), torch.as_tensor(keep, device=H.device)
+    dt_, kt = _index_tensors(lay, H.device)[3:]  # pose slot NW-2 and the rest
     H_dd_inv = _pinv_psd(H[dt_][:, dt_], eps)
     H_dk = H[dt_][:, kt]
     H_kk = H[kt][:, kt] - H_dk.T @ H_dd_inv @ H_dk
     b_kk = b[kt] - H_dk.T @ H_dd_inv @ b[dt_]
 
     J0k, r0k = _sqrt_refactor(H_kk, b_kk, eps)
-    J0, r0p = _scatter_kept(J0k, r0k, keep, lay.dim_cam)
+    J0, r0p = _scatter_kept(J0k, r0k, kt, lay.dim_cam)
     J0 = J0 * (1.0 / sc)[None, :]
     return Prior(
         J=J0, r0=r0p, valid=f.prior_valid,

@@ -67,10 +67,12 @@ def empty_factors(cfg, lay: TangentLayout, dtype=torch.float32, device=None) -> 
     unit = lambda n: torch.cat([torch.ones((n, 1), dtype=dtype, device=device),  # noqa: E731
                                 torch.zeros((n, 3), dtype=dtype, device=device)], dim=1)
     eye = torch.eye(15, dtype=dtype, device=device).expand(W, 15, 15).clone()
+    # made by fills on the device: a host list copied there waits for its queue
+    g = torch.cat([z(2), torch.full((1,), 9.81007, dtype=dtype, device=device)])
     return WindowFactors(
         imu_alpha=z(W, 3), imu_beta=z(W, 3), imu_gamma=unit(W), imu_jac=eye,
         imu_sqrt_info=eye.clone(), imu_dt=z(W), imu_ba=z(W, 3), imu_bg=z(W, 3),
-        imu_valid=z(W), g=torch.tensor([0.0, 0.0, 9.81007], dtype=dtype, device=device),
+        imu_valid=z(W), g=g,
         pt_obs=z(MF, NW, 2), pt_vel=z(MF, NW, 2), pt_td_ref=z(NW), pt_rowf=z(MF, NW),
         rs_tr=z(), pt_mask=z(MF, NW), pt_start=zi(MF), pt_valid=z(MF),
         ln_obs=z(ML, NW, 4), ln_mask=z(ML, NW), ln_valid=z(ML), ln_start=zi(ML),

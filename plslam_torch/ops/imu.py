@@ -94,6 +94,44 @@ def _total_transition(F, Q):
     return F[0], Q[0]
 
 
+def _midpoint(acc, gyr, dt, ba, bg):
+    """The midpoint recursion's (α, β, γ_{1..n}, γ_{0..n-1}, ω̄, a₀ − ba,
+    a₁ − ba) over n ≥ 1 steps."""
+    dtype, device = acc.dtype, acc.device
+    dtc = dt[:, None]
+    w_mid = 0.5 * (gyr[:-1] + gyr[1:]) - bg  # [n,3]
+    dqs = quat_exp(w_mid * dtc)  # [n,4] per-step increments
+    gamma_new = quat_normalize(_prefix_quat(dqs))  # [n,4] γ_{i+1}
+    gamma_prev = torch.cat([quat_identity(dtype, device)[None], gamma_new[:-1]], dim=0)
+
+    a0 = acc[:-1] - ba
+    a1 = acc[1:] - ba
+    a_mid = 0.5 * (quat_rotate(gamma_prev, a0) + quat_rotate(gamma_new, a1))  # [n,3]
+    db = a_mid * dtc  # per-step Δβ
+    beta_prefix = torch.cat(
+        [torch.zeros((1, 3), dtype=dtype, device=device), torch.cumsum(db, dim=0)[:-1]], dim=0)
+    beta = beta_prefix[-1] + db[-1]
+    alpha = torch.sum(beta_prefix * dtc + 0.5 * a_mid * dtc * dt[:, None], dim=0)
+    return alpha, beta, gamma_new, gamma_prev, w_mid, a0, a1
+
+
+def dead_reckon(p, v, q, acc, gyr, dt, ba, bg, g):
+    """The host's per-sample midpoint dead-reckoning of a state (p, v, q)
+    (`Estimator._deadreckon_step` over N ≥ 1 samples) at once: the
+    orientation of each sample is q ⊗ γᵢ normalized, the first one q as
+    given, and the world-frame midpoint accelerations are summed as the
+    host sums them. Returns (p, v, q)."""
+    _, _, gamma_new, _, _, a0, a1 = _midpoint(acc, gyr, dt, ba, bg)
+    q_new = quat_normalize(quat_mul(q.expand_as(gamma_new), gamma_new))  # [n,4]
+    q_prev = torch.cat([q[None], q_new[:-1]], dim=0)
+    a_mid = 0.5 * ((quat_rotate(q_prev, a0) - g) + (quat_rotate(q_new, a1) - g))
+    dtc = dt[:, None]
+    dv = a_mid * dtc
+    v_prev = v + torch.cat([torch.zeros_like(dv[:1]), torch.cumsum(dv, dim=0)[:-1]], dim=0)
+    p_out = p + torch.sum(v_prev * dtc + 0.5 * a_mid * dtc * dtc, dim=0)
+    return p_out, v + torch.sum(dv, dim=0), q_new[-1]
+
+
 def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise) -> Preintegration:
     """Integrate N steps from boundary samples acc/gyr [N+1,3], dt [N]
     (`IntegrationBase::propagate` over the whole buffer; `repropagate` is
@@ -110,21 +148,8 @@ def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise) -> Preintegration:
             torch.zeros((), dtype=dtype, device=device), ba, bg)
     noise_q = _noise_diag(noise, dtype, device)
     I3 = torch.eye(3, dtype=dtype, device=device)
-
     dtc = dt[:, None]
-    w_mid = 0.5 * (gyr[:-1] + gyr[1:]) - bg  # [n,3]
-    dqs = quat_exp(w_mid * dtc)  # [n,4] per-step increments
-    gamma_new = quat_normalize(_prefix_quat(dqs))  # [n,4] γ_{i+1}
-    gamma_prev = torch.cat([quat_identity(dtype, device)[None], gamma_new[:-1]], dim=0)
-
-    a0 = acc[:-1] - ba
-    a1 = acc[1:] - ba
-    a_mid = 0.5 * (quat_rotate(gamma_prev, a0) + quat_rotate(gamma_new, a1))  # [n,3]
-    db = a_mid * dtc  # per-step Δβ
-    beta_prefix = torch.cat(
-        [torch.zeros((1, 3), dtype=dtype, device=device), torch.cumsum(db, dim=0)[:-1]], dim=0)
-    beta = beta_prefix[-1] + db[-1]
-    alpha = torch.sum(beta_prefix * dtc + 0.5 * a_mid * dtc * dt[:, None], dim=0)
+    alpha, beta, gamma_new, gamma_prev, w_mid, a0, a1 = _midpoint(acc, gyr, dt, ba, bg)
 
     # batched F [n,15,15], V-noise Q [n,15,15] (the midpoint step's algebra)
     R0 = quat_to_rot(gamma_prev)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -97,10 +98,11 @@ def _clahe(img, clip=3.0, tiles=8):
 
 def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool = True,
               loop_closure: bool | None = None, max_frames: int | None = None,
-              progress: bool = False, pipeline: bool = True, burst: int = 0, device=None):
-    """Streaming pipeline on an EuRoC ASL sequence: image → CLAHE → point
-    and line frontends → IMU pairing → estimator. Runs on the card unless
-    `device` says otherwise.
+              progress: bool = False, pipeline: bool = True, burst: int = 0,
+              record_tracks: dict | None = None, burst_log: list | None = None, device=None):
+    """Pipeline on an EuRoC ASL sequence: image → CLAHE → point and line
+    frontends → IMU pairing → estimator. Runs on the card unless `device`
+    says otherwise.
 
     FREQ control: the point frontend tracks EVERY camera frame but publishes
     to the estimator every `stride`-th one; tracked-only frames run pyramid
@@ -110,7 +112,9 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     octave; both frontends' bundles are read back with one wait.
     `pipeline=True` decodes frame k+1 on a worker thread while frame k runs
     and defers each solve's readback to the next published frame; the
-    trajectory is identical to `pipeline=False`.
+    trajectory is identical to `pipeline=False`. A fisheye mask image
+    (`config.tracker.fisheye_mask`) limits the tracked field of view; one
+    that does not load falls back to the centered circle with a warning.
 
     Loop closure (`loop_closure`, by default `config.loop.loop_closure`):
     every solved keyframe enters the pose graph with its CLAHE'd image and
@@ -120,10 +124,18 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     every emitted pose is drift-corrected. The map is loaded and saved as
     `config.loop` says.
 
+    `burst=B` (offline replay): once the estimator has run 7 solves with a
+    prior, B published frames at a time run as one chunk of device steps
+    with one readback (`models/burst.py`; each step also reads its keyframe
+    flag back). Keyframes enter the pose graph a chunk at a time; a loop that
+    wants the relocalization round trip, a timestamp jump, failure
+    detection, and the frames left over for less than a chunk run
+    streaming. `burst_log`, when given, receives one dict per chunk run and
+    one per fallback to streaming (its "fallback" names the reason).
+    `record_tracks`, when given, receives the published frames' tracks
+    `{t: (ids, normalized obs)}`; it forces streaming, as in the JAX package.
+
     Returns (ts, ps, qs, estimator, pose graph or None)."""
-    if burst:
-        raise NotImplementedError(
-            "run_euroc(burst>0): offline burst replay is ROADMAP queue 1 item 14 (slice E)")
     from plslam_torch.io.euroc import EurocSequence
     from plslam_torch.models.frontend_lines import FrontendLines
     from plslam_torch.models.frontend_points import FrontendPoints
@@ -133,14 +145,24 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     config = config or PLSlamConfig()
     loop_closure = config.loop.loop_closure if loop_closure is None else loop_closure
     tr = config.tracker
-    if tr.fisheye and tr.fisheye_mask:
-        raise NotImplementedError("run_euroc: fisheye mask images are not ported yet")
+    if tr.show_track:
+        raise NotImplementedError("run_euroc: config.tracker.show_track needs the track "
+                                  "visualizer, ROADMAP queue 1 item 15")
     seq = EurocSequence.load(seq_path)
     est = Estimator(config, device=device)
     cam = make_camera(config.camera)
+    fisheye_mask = None
+    if tr.fisheye and tr.fisheye_mask:  # nonzero pixels are the usable field of view
+        from plslam_torch.io import native
+
+        fisheye_mask = native.load_png_gray(tr.fisheye_mask)
+        if fisheye_mask is None:
+            warnings.warn(f"could not load fisheye_mask {tr.fisheye_mask!r}; "
+                          f"using the centered circle")
     fp = FrontendPoints(cam, max_cnt=tr.max_cnt, min_dist=tr.min_dist,
                         f_thresh_px=tr.f_threshold, focal=config.camera.fx,
-                        min_score=tr.min_score, fisheye=tr.fisheye, device=est.device)
+                        min_score=tr.min_score, fisheye=tr.fisheye, fisheye_mask=fisheye_mask,
+                        device=est.device)
     f_lines = (FrontendLines(cam, max_lines=tr.max_lines, binary_desc=tr.line_desc == "binary",
                              device=est.device) if use_lines else None)
     pgraph = (PoseGraph(config.loop, focal=config.solver.focal_length,
@@ -206,9 +228,7 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             if loop is not None and pgraph.last_match is not None:
                 # relocalization feedback (`setReloFrame`): the next solve
                 # refines the loop jointly
-                mm = pgraph.last_match
-                if est.set_relo_frame(mm["ids"], mm["obs_old"], mm["p_old"], mm["q_old"]):
-                    relo_edge["ij"] = (mm["old_idx"], mm["cur_idx"])
+                _set_relo(pgraph.last_match)
             if loop is not None and config.loop.fast_relocalization and loop["i"] < pgraph.base_n:
                 pgraph.fast_relocalize(loop)  # the edge lands in the loaded map
         if pgraph is not None:
@@ -219,12 +239,45 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
         ps_out.append(p)
         qs_out.append(q)
 
+    def _set_relo(mm):
+        if est.set_relo_frame(mm["ids"], mm["obs_old"], mm["p_old"], mm["q_old"]):
+            relo_edge["ij"] = (mm["old_idx"], mm["cur_idx"])
+
+    def _burst_ready():
+        return (est.initialized and est.prior is not None and est.relo is None
+                and relo_edge["ij"] is None)
+
+    # track recording needs every published frame's tracks on the host: it
+    # forces streaming, as in the JAX package
+    burst_on = burst > 0 and record_tracks is None
     n_pub = 0
     prev_cam_t = None
+    n_cam = len(seq.cam_t)
+    k = 0
     try:
-        for k in range(len(seq.cam_t)):
-            if n_pub >= max_pub:
-                break
+        while k < n_cam and n_pub < max_pub:
+            # burst: once initialized with a live prior (its first solves in
+            # streaming, where the post-init health gate runs) and with no
+            # relocalization round trip pending, chunks of `burst` published
+            # frames run on the device; streaming resumes for what is left
+            if burst_on and k % stride == 0 and _burst_ready() and est.solves_since_init > 6:
+                if deferred is not None:
+                    _emit(deferred)
+                    deferred = None
+                est.finalize()
+                if _burst_ready():  # finalize may have run failure detection
+                    k2, n_pub, relo_match = _burst_tail(
+                        seq, config, est, fp, f_lines, feeder, k, stride, burst, _load,
+                        ts_out, ps_out, qs_out, n_pub, max_pub, progress, pgraph, cam, burst_log)
+                    if relo_match is not None:
+                        _set_relo(relo_match)  # the streaming solve refines the edge
+                    elif k2 == k:
+                        burst_on = False  # no chunk ran: stream on
+                    k = k2
+                    prev_cam_t = float(seq.cam_t[k - 1]) if k > 0 else None
+                    if executor is not None and k < n_cam:
+                        pending = executor.submit(_load, k)
+                    continue
             t = float(seq.cam_t[k])
             # restart handshake: a timestamp discontinuity resets the trackers
             # (the estimator resets itself in process_frame)
@@ -235,12 +288,13 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             prev_cam_t = t
             if executor is not None:
                 img = pending.result()
-                if k + 1 < len(seq.cam_t):
+                if k + 1 < n_cam:
                     pending = executor.submit(_load, k + 1)
             else:
                 img = _load(k)
             publish = k % stride == 0
             pts_h = fp.process(img, t, want_output="defer" if publish else False, light=not publish)
+            k += 1
             if not publish:
                 continue
             if f_lines is not None:
@@ -252,6 +306,10 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
                 ids, pts, vel, _ = pts_h.get()
                 ln_ids = ln_segs = None
             n_pub += 1
+            if record_tracks is not None and len(ids):
+                # the published tracks keyed by time: global ids and normalized
+                # observations (the `/feature` topic's payload)
+                record_tracks[t] = (np.asarray(ids).copy(), np.asarray(pts, np.float64).copy())
             if deferred is not None:
                 _emit(deferred)
                 deferred = None
@@ -261,14 +319,14 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
                 deferred = (m, img)
             else:
                 _emit((m, img))
-            if progress and k % 100 == 0:
-                print(f"[{k}] t={t:.2f} init={est.initialized} pts={m.get('n_pts')} "
+            if progress and (k - 1) % 100 == 0:
+                print(f"[{k - 1}] t={t:.2f} init={est.initialized} pts={m.get('n_pts')} "
                       f"lines={m.get('n_lines')}")
         if deferred is not None:
             _emit(deferred)  # drain the last in-flight solve
         if pgraph is not None and pgraph._pending_opt:
-            # a loop on the final published frame still gets its 4-DoF solve,
-            # on the raw PnP edge
+            # a loop on the final published frame or chunk still gets its
+            # 4-DoF solve, on the raw PnP edge
             pgraph.optimize()
     finally:
         if executor is not None:
@@ -282,18 +340,178 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     return np.asarray(ts_out), np.asarray(ps_out), np.asarray(qs_out), est, pgraph
 
 
+def _to_device(a: np.ndarray, dtype, device):
+    """A host array on `device`: through pinned memory without waiting on
+    the card, so that no upload stalls the host behind the device's queue."""
+    t = torch.from_numpy(np.array(a)).to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _burst_tail(seq, config, est, fp, f_lines, feeder, k0, stride, B, load, ts_out, ps_out,
+                qs_out, n_pub, max_pub, progress, pgraph, cam, burst_log):
+    """The burst loop on the host (`models/burst.py`): the rest of the sequence in
+    chunks of B published frames, one chunk of device steps and one readback
+    each. A worker thread decodes the next chunk's frames and uploads them as
+    uint8 while the card runs this one. With a pose graph every keyframe's
+    payload rides the chunk's readback and loop closure runs on the host a
+    chunk at a time. Returns (the next camera frame for the streaming loop,
+    the updated published count, a loop match wanting the relocalization
+    round trip or None). Stops early on a timestamp jump, failure detection
+    or such a loop, and runs nothing with less than a chunk left: streaming
+    handles each. Every chunk and every fallback lands in `burst_log`."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from plslam_torch.models import burst as burst_mod
+    from plslam_torch.models.frontend_points import to_u8
+
+    def note(**entry):
+        if burst_log is not None:
+            burst_log.append(entry)
+        if progress and "fallback" in entry:
+            print(f"[burst @{entry['k']}] back to streaming: {entry['fallback']}")
+
+    cam_t = np.asarray(seq.cam_t, np.float64)
+    n_cam = len(cam_t)
+    if n_pub + B > max_pub or k0 + B * stride > n_cam:
+        note(k=k0, fallback="fewer frames left than a chunk")
+        return k0, n_pub, None
+    try:
+        carry = burst_mod.make_carry(est, fp, f_lines)
+    except ValueError as e:
+        note(k=k0, fallback=f"handoff refused: {e}")
+        return k0, n_pub, None
+    step = burst_mod.BurstStep(est, fp, f_lines, stride)
+    packer = burst_mod.ImuChunkPacker(seq.imu_t, seq.imu_acc, seq.imu_gyr, feeder.i,
+                                      feeder.prev_t, feeder.prev_acc, feeder.prev_gyr)
+    dev = est.device
+    W = est.cfg.window_size
+    k = k0
+    prev_t = float(cam_t[k0 - 1]) if k0 > 0 else float(cam_t[0]) - 0.05
+    # the timestamps of each slot, replicated on the host from the publish
+    # times and keyframe flags by the estimator's own slide rules
+    ts_win = est.timestamps.copy()
+    td = float(est.td)
+    failed = False
+    relo_match = None
+
+    def decode(kk):
+        frames = [load(kk + i) for i in range(B * stride)]
+        u8 = np.stack([to_u8(f) for f in frames]).reshape(B, stride, *frames[0].shape)
+        return frames, _to_device(u8, torch.uint8, dev)
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        prefetch = pool.submit(decode, k0)
+        while not failed and n_pub + B <= max_pub and k + B * stride <= n_cam:
+            tchunk = cam_t[k: k + B * stride]
+            dts_cam = np.diff(np.concatenate([[prev_t], tchunk]))
+            if np.any(dts_cam <= 0) or np.any(dts_cam > 1.0):
+                note(k=k, fallback="timestamp jump")
+                break
+            t0 = time.perf_counter()
+            frames, imgs = prefetch.result()
+            t_dec = time.perf_counter()
+            prefetch = (pool.submit(decode, k + B * stride)
+                        if k + 2 * B * stride <= n_cam else None)
+            acc, gyr, dts, n_imu = zip(*[packer.interval(tchunk[j * stride], td)
+                                         for j in range(B)])
+            carry, outs = step.run_chunk(
+                carry, imgs, dts_cam.reshape(B, stride).tolist(),
+                *[_to_device(np.stack(a), torch.float64, dev) for a in (acc, gyr, dts)],
+                list(n_imu), [td] * B)
+            o = dict(zip(outs, HostCopy(*outs.values()).get()))  # the chunk's one wait
+            t_read = time.perf_counter()
+            emitted = 0
+            for j in range(B):
+                if o["fail"][j]:
+                    failed = True
+                    break
+                tt = float(tchunk[j * stride])
+                # the slide of the slot timestamps (process_frame writes slot
+                # W; MARGIN_OLD rolls left, SECOND_NEW copies W → W-1)
+                ts_win[W] = tt
+                if o["keyframe"][j]:
+                    ts_win[:-1] = ts_win[1:]
+                else:
+                    ts_win[W - 1] = ts_win[W]
+                p_raw = o["p"][j].astype(np.float64)
+                q_raw = o["q"][j].astype(np.float64)
+                p_out, q_out = p_raw, q_raw
+                if pgraph is not None:
+                    if o["keyframe"][j]:
+                        sel = o["kf_points"][j]
+                        loop = pgraph.add_keyframe(
+                            tt, p_raw, q_raw, img=frames[j * stride], cam=cam,
+                            win_uv=o["uv"][j][sel].astype(np.float64) if sel.any() else None,
+                            win_pts3d=o["p_w"][j][sel].astype(np.float64),
+                            win_ids=o["ids"][j][sel].astype(np.int64))
+                        if loop is not None and relo_match is None:
+                            if config.loop.fast_relocalization and loop["i"] < pgraph.base_n:
+                                pgraph.fast_relocalize(loop)
+                            # the round trip runs after this chunk, in streaming
+                            if pgraph.last_match is not None:
+                                relo_match = dict(pgraph.last_match)
+                        if pgraph._pending_opt and relo_match is None:
+                            pgraph.optimize()
+                    p_out, q_out = pgraph.correct(p_raw, q_raw)
+                ts_out.append(tt)
+                ps_out.append(p_out)
+                qs_out.append(q_out)
+                est.metrics.append({"t": tt, "keyframe": bool(o["keyframe"][j]),
+                                    "cost": float(o["cost"][j]),
+                                    "tracked": int(o["long_tracked"][j]),
+                                    "long_tracked": int(o["long_tracked"][j]),
+                                    "n_pts": int(o["n_pts"][j]), "burst": True})
+                n_pub += 1
+                emitted += 1
+            note(k=k, frames=emitted, decode_wait_s=t_dec - t0, chunk_s=t_read - t_dec,
+                 t0=t0, t1=t_read)
+            td = float(o["td"][-1])  # estimate_td: the next chunk pairs at the live td
+            prev_t = float(tchunk[-1])
+            k += B * stride
+            if failed:
+                note(k=k, fallback="failure detection")
+            elif relo_match is not None:
+                note(k=k, fallback="relocalization round trip")
+                break
+            if progress:
+                print(f"[burst {k}] t={prev_t:.2f} pts={int(o['n_pts'][-1])} "
+                      f"cost={float(o['cost'][-1]):.3g}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    burst_mod.sync_back(est, fp, f_lines, carry, ts_win, last_cam_t=prev_t)
+    feeder.i = packer.i
+    feeder.prev_t, feeder.prev_acc, feeder.prev_gyr = (packer.prev_t, packer.prev_acc,
+                                                       packer.prev_gyr)
+    if packer.prev_acc is not None:
+        # the next open interval seeds with the chunk's boundary sample
+        est.last_acc = np.asarray(packer.prev_acc, np.float64)
+        est.last_gyr = np.asarray(packer.prev_gyr, np.float64)
+    if failed:
+        est.clear_state()  # streaming's failureDetection: clearState and re-initialize
+    return k, n_pub, relo_match
+
+
 def run_synthetic(seq, config: PLSlamConfig | None = None, oracle_init: bool = False,
                   use_lines: bool = True, max_frames: int | None = None, frame_stride: int = 2,
-                  progress: bool = False, drop_frames: set | None = None, device=None):
+                  progress: bool = False, drop_frames: set | None = None,
+                  extrinsic_rot_override=None, device=None):
     """Feed a synthetic sequence (ground-truth associations: a perfect
     frontend) through the estimator. `frame_stride=2` turns the 20 Hz camera
     stream into the reference's 10 Hz processing rate.
+    `extrinsic_rot_override`: a 3×3 R_bc the estimator starts from instead of
+    the simulator's (a miscalibrated rig, for `estimate_extrinsic` 1 and 2).
     Returns (ts, ps, qs, estimator)."""
     from plslam_torch.utils.geometry import quat_to_rot
 
     config = config or PLSlamConfig()
     # the estimator must use the simulator's body_T_cam, not the config default
     R_bc = quat_to_rot(torch.as_tensor(np.asarray(seq.q_bc), dtype=torch.float64)).numpy()
+    if extrinsic_rot_override is not None:
+        R_bc = np.asarray(extrinsic_rot_override, np.float64).reshape(3, 3)
     config = dataclasses.replace(config, extrinsic=ExtrinsicConfig(
         estimate_extrinsic=config.extrinsic.estimate_extrinsic,
         rot=tuple(R_bc.reshape(-1).tolist()), trans=tuple(np.asarray(seq.p_bc).tolist())))

@@ -43,7 +43,10 @@ def skew(v):
 
 
 def quat_identity(dtype=torch.float32, device=None):
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    # made by fills on the device: a host list copied to the card, or an
+    # element set from a Python number, waits for the card's queue
+    return torch.cat([torch.ones(1, dtype=dtype, device=device),
+                      torch.zeros(3, dtype=dtype, device=device)])
 
 
 def quat_normalize(q):

@@ -2,13 +2,15 @@
 `scripts/` share: the card's name and power limit, CUDA-event, profiler and
 host timing, the LK kernel's inputs at the main path's shapes, the
 PyTorch library calls that compute the Hamming matrix (a yardstick only: no
-path of the port calls them), and the pose graph's solve timed eagerly and
-through CUDA graphs."""
+path of the port calls them), the pose graph's solve timed eagerly and
+through CUDA graphs, and the host's waits on the card, stamped."""
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -239,3 +241,30 @@ def pgo_graph_vs_eager(pg, iters=12, rounds=2):
     finally:
         pg.edges, pg.n = edges, n
     return out
+
+
+@contextlib.contextmanager
+def sync_stamps():
+    """The host clock (`time.perf_counter`) and the Python line ("file:line")
+    of every CUDA call that waits for the card while the block runs:
+    PyTorch's sync debug mode warns at each (`.item()`, `bool(tensor)`, a
+    pageable copy, a linalg `info` check), and the warning is stamped
+    instead of shown. Yields the list of (stamp, line) pairs."""
+    stamps = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stamps.append((time.perf_counter(), f"{filename}:{lineno}"))
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield stamps
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)

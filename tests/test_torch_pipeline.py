@@ -2,9 +2,10 @@
 deferred solve readback) gives the same trajectory as the synchronous loop,
 the slice runs with JAX and the JAX package blocked (as on the machine with
 the card), neither the package nor the chip smoke script imports JAX or
-`plslam`, the entry points default to the card (and raise without one), and burst
-replay, not ported yet, raises a clear `NotImplementedError`. Loop closure
-across sessions is held against JAX in `test_torch_map.py`."""
+`plslam`, the entry points default to the card (and raise without one), and the
+track visualizer (`tracker.show_track`), not ported yet, raises a clear
+`NotImplementedError`. Loop closure over two runs sharing a map is held against JAX in
+`test_torch_map.py`."""
 import ast
 import os
 import subprocess
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from plslam_torch.config import PLSlamConfig, TrackerConfig
 from plslam_torch.convert import config_from_jax
 from plslam_torch.runner import run_euroc
 from plslam_torch.utils.device import resolve_device
@@ -44,11 +46,11 @@ def test_pipeline_matches_synchronous(dataset):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(burst=16), "item 14"),
+    (dict(config=PLSlamConfig(tracker=TrackerConfig(show_track=True))), "item 15"),
 ])
 def test_run_euroc_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
-        run_euroc("unused", None, **kwargs)
+        run_euroc("unused", **kwargs)
 
 
 def test_package_has_no_jax_import():

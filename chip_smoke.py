@@ -76,9 +76,28 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      chunk) and its kernels; then the loop scene's full-width configuration
      with loop closure in burst: at least one loop, ATE < 0.4 m, LK =
      tracked frames, Hamming = published frames + keyframe searches.
-  8. one JSON line of kernel results (rows for the burst run's LK and
-     Hamming calls and the loop search's beside the main path's), then
-     the last line {"ok": true, "device": {...}}.
+  8. the command line and the tools around `run_euroc`: (a) phase 5's
+     configuration written as a reference-format YAML and run through
+     `python -m plslam_torch run` in a subprocess (its launches counted):
+     its TUM file holds phase 5's poses within 1e-6 m and its score line
+     phase 5's ATE within 1e-4 m, and `eval` of that file prints the same
+     score; (b) an `Estimator` at phase 5's width on the smoke recipe's
+     simulator observations, 40 published frames uninterrupted against a
+     checkpoint saved after 25 and loaded into a fresh `Estimator` on the
+     card: equal bit for bit; save and load ms, the npz size; (c)
+     intrinsic calibration on the card (`tests/test_calibration.py`'s 8
+     views and a 40-view set), held to that test's bounds and, for the 8
+     views, to the CPU's result within 1e-6; ms a call by CUDA events; (d)
+     6(a)'s configuration with `tracker.show_track`: a track image every
+     4th camera frame, a match image a loop, LK launches = tracked
+     frames, Hamming launches = keyframe searches, a trajectory other than
+     6(a)'s (the visualizer runs every frame's full tick, as on the CPU),
+     frames/s beside 6(a)'s; its last LK call and every Hamming call held
+     against the plain versions and timed for the kernels line.
+  9. one JSON line of kernel results (rows for the burst run's LK and
+     Hamming calls, the loop search's, the CLI run's and the show_track
+     run's beside the main path's), then the last line
+     {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -438,7 +457,8 @@ def _published(n_cam, max_frames=None, stride=2):
 
 def run_main_path(dev):
     """Phase 5: the port's streaming pipeline with binary lines on the
-    rendered set. Returns the launch counts of the run."""
+    rendered set. Returns (the launch counts of the run, its (ts, ps, qs),
+    its ATE)."""
     import torch
 
     from plslam_torch import runner
@@ -476,7 +496,7 @@ def run_main_path(dev):
         f"median lines solved {med_lines:.0f}; launches {launches}; ATE(yaw) {ate:.4f} m")
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate:.4f} m ≥ {ATE_LIMIT_M} m")
-    return launches
+    return launches, (ts, ps, qs), ate
 
 
 def time_line_tick(dev):
@@ -632,7 +652,7 @@ def run_loop_case(dev, label, cfg, use_lines):
     the pose graph's outcomes and costs. Returns (run outputs, meta,
     launches, keyframe searches that reached the descriptor match, the
     largest difference of the search's Hamming kernel from its plain
-    version)."""
+    version, camera frames/s)."""
     import torch
 
     from plslam_torch import runner
@@ -706,14 +726,15 @@ def run_loop_case(dev, label, cfg, use_lines):
     for (n1, n2), (a, b) in sorted(shapes.items())[-3:]:
         us = device_us(lambda: hamming.hamming_matrix_cuda(a, b), "hamming_kernel")
         log(f"  ({label}) the search's Hamming at {n1}×{n2}: {us:.3f} µs device time")
-    return (ts, ps, qs, est, pg), meta, launches, len(searched), err
+    return (ts, ps, qs, est, pg), meta, launches, len(searched), err, n_cam / wall
 
 
 def run_loop_scene(dev):
     """Phase 6: (a) the JAX loop test's configuration, held to its
     assertions; (b) the full width. Returns the loop search's Hamming
-    launches of (b) and the search kernel's largest difference from its
-    plain version over both runs' descriptor pairs."""
+    launches of (b), the search kernel's largest difference from its plain
+    version over both runs' descriptor pairs, and (a)'s (ts, ps) and camera
+    frames/s."""
     from plslam_torch.eval.metrics import ate_rmse
     from plslam_torch.utils import quat_np as qnp
 
@@ -721,7 +742,8 @@ def run_loop_scene(dev):
     log(f"  dataset: {path} (rendered in {render_s:.1f} s)")
     reference, full = loop_configs(np.load(os.path.join(path, "meta.npz")))
 
-    (ts, ps, _, est, pg), meta, _, _, err_a = run_loop_case(dev, "a", reference, use_lines=False)
+    (ts, ps, _, est, pg), meta, _, _, err_a, fps_a = run_loop_case(dev, "a", reference,
+                                                                   use_lines=False)
     gt_t, gt_p, gt_q = meta["gt_t"], meta["gt_p"], meta["gt_q"]
     n = pg.n
     raw_ate = float(ate_rmse(pg.t_kf[:n], pg.vio_p[:n], gt_t, gt_p, align="yaw"))
@@ -762,13 +784,14 @@ def run_loop_scene(dev):
     if failed:
         raise AssertionError(f"(a) the loop e2e assertions failed: {failed}")
     log(f"  (a) the loop e2e assertions hold: {len(checks)} of {len(checks)}")
+    run_a = (ts, ps, fps_a)
 
-    (ts, ps, _, _, pg), meta, launches, searched, err_b = run_loop_case(dev, "b", full,
-                                                                        use_lines=True)
+    (ts, ps, _, _, pg), meta, launches, searched, err_b, _ = run_loop_case(dev, "b", full,
+                                                                           use_lines=True)
     ate = float(ate_rmse(ts, ps, meta["gt_t"], meta["gt_p"], align="yaw"))
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"(b) ATE {ate:.4f} m ≥ {ATE_LIMIT_M} m")
-    return searched, max(err_a, err_b)
+    return searched, max(err_a, err_b), run_a
 
 
 BURST = 8  # published frames a chunk (phase 7)
@@ -821,19 +844,21 @@ def burst_run(dev, path, cfg, meta, burst, max_frames=None, loop=False):
 
 
 @contextlib.contextmanager
-def burst_kernel_calls():
+def burst_kernel_calls(burst_steps_only=True, last_lk_only=False):
     """Keep every LK and Hamming kernel call that the burst steps make while
     the block runs (calls outside `BurstStep.run_chunk`, the streamed
-    frames', are not kept): the wrapper's arguments and the outputs it
-    returned, copied on the card, which waits for nothing. Yields
-    {"lk_track": [(args, kwargs, outputs)], "hamming_matrix": [...]}."""
+    frames', are not kept; with `burst_steps_only=False` every call is):
+    the wrapper's arguments and the outputs it returned, copied on the
+    card, which waits for nothing; with `last_lk_only` only the last LK
+    call is kept. Yields {"lk_track": [(args, kwargs, outputs)],
+    "hamming_matrix": [...]}."""
     import torch
 
     from plslam_torch.models import burst
     from plslam_torch.ops.kernels import hamming, lk
 
     calls = {"lk_track": [], "hamming_matrix": []}
-    inside = [False]
+    inside = [not burst_steps_only]
     run_chunk, lk_cuda, ham_cuda = (burst.BurstStep.run_chunk, lk.lk_track_cuda,
                                     hamming.hamming_matrix_cuda)
 
@@ -846,6 +871,8 @@ def burst_kernel_calls():
         def call(*args, **kwargs):
             out = fn(*args, **kwargs)
             if inside[0]:
+                if last_lk_only and name == "lk_track":
+                    calls[name].clear()
                 calls[name].append((copy(args), copy(kwargs), copy(out)))
             return out
         return call
@@ -855,7 +882,7 @@ def burst_kernel_calls():
         try:
             return run_chunk(self, *args)
         finally:
-            inside[0] = False
+            inside[0] = not burst_steps_only
 
     burst.BurstStep.run_chunk = chunk
     lk.lk_track_cuda = kept("lk_track", lk_cuda)
@@ -867,8 +894,8 @@ def burst_kernel_calls():
         lk.lk_track_cuda, hamming.hamming_matrix_cuda = lk_cuda, ham_cuda
 
 
-def hold_burst_calls(calls):
-    """Each kept burst call's output against the kernel's plain version on
+def hold_burst_calls(calls, label="burst"):
+    """Each kept call's output against the kernel's plain version on
     its inputs — LK at phase 3's tolerance (positions within POS_TOL_PX
     where both track, the status equal away from the error gate), Hamming
     bit for bit — then the kernel, its plain version and, for Hamming, the
@@ -883,7 +910,7 @@ def hold_burst_calls(calls):
     from plslam_torch.utils.measure import cuda_time_ms, hamming_library, ms_in_turns
 
     if not calls["lk_track"] or not calls["hamming_matrix"]:
-        raise AssertionError(f"burst made {len(calls['lk_track'])} LK and "
+        raise AssertionError(f"({label}) kept {len(calls['lk_track'])} LK and "
                              f"{len(calls['hamming_matrix'])} Hamming kernel calls")
     sig = inspect.signature(lk.lk_track_cuda)
 
@@ -914,13 +941,13 @@ def hold_burst_calls(calls):
         ham_err, shapes[tuple(k.shape)] = max(ham_err, err), shapes[tuple(k.shape)] + 1
         if k.dtype != torch.int32 or not torch.equal(k, p):
             misses.append(f"Hamming call {i} at {tuple(k.shape)}: max |Δ| {err}")
-    log(f"  (burst) held {len(calls['lk_track'])} LK calls ({tracked} points tracked by both, "
+    log(f"  ({label}) held {len(calls['lk_track'])} LK calls ({tracked} points tracked by both, "
         f"max |Δpos| {lk_err:.3e} px) and {len(calls['hamming_matrix'])} Hamming calls (shapes "
         f"{dict(shapes)}, max |Δ| {ham_err}) against their plain versions")
     for miss in misses:
-        log(f"  (burst) MISS {miss}")
+        log(f"  ({label}) MISS {miss}")
     if misses:
-        raise AssertionError(f"{len(misses)} burst kernel calls disagree with their plain versions")
+        raise AssertionError(f"({label}) {len(misses)} kernel calls disagree with their plain versions")
 
     args, kwargs, _ = calls["lk_track"][-1]
     a, plain = lk_plain(args, kwargs)
@@ -930,7 +957,7 @@ def hold_burst_calls(calls):
                                         a["formulation"], a["iters"])
     rows = {"lk_track": dict(max_abs_err=lk_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None)}
-    log(f"  (burst) LK on the last call's inputs ({a['pts_prev'].shape[0]} points): {ms:.5f} ms "
+    log(f"  ({label}) LK on the last call's inputs ({a['pts_prev'].shape[0]} points): {ms:.5f} ms "
         f"by CUDA events; plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})")
     (d1, d2), _, _ = calls["hamming_matrix"][-1]
     lib, _ = hamming_library(d1, d2)
@@ -942,7 +969,7 @@ def hold_burst_calls(calls):
     bound_ms, bound_by = hamming_bound(len(d1), len(d2))
     rows["hamming_matrix"] = dict(max_abs_err=float(ham_err), ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by, library_ms=mean[best])
-    log(f"  (burst) Hamming on the last call's inputs ({len(d1)}×{len(d2)}): {ms:.5f} ms by CUDA "
+    log(f"  ({label}) Hamming on the last call's inputs ({len(d1)}×{len(d2)}): {ms:.5f} ms by CUDA "
         f"events (mean of {len(rounds['kernel'])} rounds in turns), {best} {mean[best]:.5f} ms; "
         f"plain {plain_ms:.5f} ms; bound {bound_ms:.3e} ms ({bound_by})")
     return rows
@@ -1093,6 +1120,318 @@ def run_burst(dev):
     return burst_launches, rows
 
 
+# ---- phase 8: the command line and the tools around run_euroc ----
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CKPT_FRAMES, CKPT_SAVE_AT = 40, 25  # published frames of 8(b), and the one it saves after
+CALIB_VIEWS = (8, 40)  # `tests/test_calibration.py`'s set, and a larger one
+CALIB_GT = (460.0, 455.0, 370.0, 245.0, -0.25, 0.06, 5e-4, -3e-4)  # fx fy cx cy k1 k2 p1 p2
+# `python -m plslam_torch` as `-m` runs it, then the kernels' launch counts on stderr
+CLI_COUNTING = """import json, runpy, sys
+from plslam_torch.ops.kernels import hamming, lk
+sys.argv[0] = "plslam_torch"
+runpy.run_module("plslam_torch", run_name="__main__", alter_sys=True)
+print(json.dumps({"lk_track": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}), file=sys.stderr)
+"""
+
+
+def write_smoke_yaml(cfg, path):
+    """`cfg` (phase 5's configuration) as a reference-format YAML: each field
+    that differs from `PLSlamConfig.from_yaml`'s defaults through the key it
+    reads. Raises unless the file loads back to `cfg`."""
+    from plslam_torch.config import PLSlamConfig
+
+    c, tr, so, ex = cfg.camera, cfg.tracker, cfg.solver, cfg.extrinsic
+
+    def num(v):  # a float YAML 1.1 reads back exactly (a dot and a signed exponent)
+        return f"{float(v):.17e}"
+
+    text = f"""%YAML:1.0
+image_width: {c.image_width}
+image_height: {c.image_height}
+distortion_parameters:
+   k1: {num(c.k1)}
+   k2: {num(c.k2)}
+   p1: {num(c.p1)}
+   p2: {num(c.p2)}
+projection_parameters:
+   fx: {num(c.fx)}
+   fy: {num(c.fy)}
+   cx: {num(c.cx)}
+   cy: {num(c.cy)}
+max_cnt: {tr.max_cnt}
+min_dist: {tr.min_dist}
+equalize: {int(tr.equalize)}
+min_score: {num(tr.min_score)}
+max_lines: {tr.max_lines}
+line_desc: {tr.line_desc}
+max_features: {so.max_features}
+max_line_feats: {so.max_line_feats}
+window_size: {so.window_size}
+max_num_iterations: {so.max_num_iterations}
+solver_dtype: {so.dtype}
+focal_length: {num(so.focal_length)}
+estimate_extrinsic: {ex.estimate_extrinsic}
+extrinsicRotation: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [{", ".join(num(v) for v in ex.rot)}]
+extrinsicTranslation: !!opencv-matrix
+   rows: 3
+   cols: 1
+   dt: d
+   data: [{", ".join(num(v) for v in ex.trans)}]
+loop_closure: {int(cfg.loop.loop_closure)}
+"""
+    with open(path, "w") as fh:
+        fh.write(text)
+    back = PLSlamConfig.from_yaml(path)
+    diff = [f.name for f in dataclasses.fields(cfg) if getattr(back, f.name) != getattr(cfg, f.name)]
+    if diff:
+        raise AssertionError(f"the YAML loads back with other {diff} sections")
+    return path
+
+
+def _cli(args, timeout=900):
+    """`python -m plslam_torch <args>` in a subprocess from the checkout, its
+    kernel launches counted. Returns (stdout lines, launches, wall s)."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_COUNTING, *args], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m plslam_torch {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.stdout.strip().splitlines(), json.loads(proc.stderr.strip().splitlines()[-1]), wall
+
+
+def _same_score(a, b):
+    """Two score lines agree: the same keys, and values equal but for one
+    unit in the last place kept (4 decimals in m, 3 in deg): a TUM file
+    keeps 6 decimals, which can move a rounding."""
+    last = {"ate_rmse_m": 1e-4, "rpe_trans_m": 1e-4, "rpe_rot_deg": 1e-3}
+
+    def same(k):
+        if k not in last:
+            return a[k] == b[k]
+        return abs(a[k] - b[k]) <= last[k] * 1.0001 or (np.isnan(a[k]) and np.isnan(b[k]))
+
+    return a.keys() == b.keys() and all(same(k) for k in a)
+
+
+def cli_run(main_run):
+    """8(a): `python -m plslam_torch run` on the smoke set with phase 5's
+    configuration as YAML, its TUM file against phase 5's in-process run,
+    then `eval` of that file. Returns the run's launches."""
+    from plslam_torch.eval.metrics import read_tum
+
+    (ts5, ps5, _), ate5 = main_run
+    path, _ = render_dataset()
+    cfg = smoke_config(np.load(os.path.join(path, "meta.npz")))
+    n_cam, n_pub = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))))
+    tmp = tempfile.mkdtemp(prefix="plslam_torch_cli_")
+    yaml_path = write_smoke_yaml(cfg, os.path.join(tmp, "smoke.yaml"))
+    out = os.path.join(tmp, "out")
+    lines, launches, wall = _cli(["run", "--data", path, "--config", yaml_path, "--output", out,
+                                  "--quiet"])
+    score = json.loads(lines[-1])
+    ts, ps, qs = read_tum(os.path.join(out, "traj_vio.tum"))
+    log(f"  run: {wall:.1f} s wall (the process's start, the kernels loaded, {n_cam} camera "
+        f"frames); {len(ts)} poses; launches {launches}; score {score}")
+    if len(ts) != len(ts5):
+        raise AssertionError(f"the CLI wrote {len(ts)} poses, phase 5 emitted {len(ts5)}")
+    dt, dp = np.abs(ts - ts5).max(), np.abs(ps - ps5).max()
+    log(f"  run against phase 5's run: max |Δt| {dt:.3e} s, max |Δp| {dp:.3e} m (TUM keeps 6 "
+        f"decimals), ATE {score['ate_rmse_m']} against {ate5:.6f} m")
+    if not (dt <= 1e-6 and dp <= 1e-6 and abs(score["ate_rmse_m"] - ate5) <= 1e-4):
+        raise AssertionError("the CLI's trajectory or ATE is not phase 5's")
+    if launches != {"lk_track": n_cam - 1, "hamming_matrix": n_pub}:
+        raise AssertionError(f"CLI launches {launches}: expected LK {n_cam - 1}, Hamming {n_pub}")
+    lines, _, wall = _cli(["eval", "--est", os.path.join(out, "traj_vio.tum"), "--data", path])
+    again = json.loads(lines[-1])
+    log(f"  eval: {wall:.1f} s wall; score {again}")
+    if not _same_score(again, score):
+        raise AssertionError(f"eval printed {again}, run printed {score}")
+    return launches
+
+
+def _drive_synthetic(est, seq, k0, k1, stride=2):
+    """Published frames [k0, k1) of a simulator sequence, in the manner of
+    `tests/test_io.py::_run_frames` (index-determined IMU dts, oracle
+    initialization). Returns the latest pose's position after each frame."""
+    imu_t = np.asarray(seq.imu_t)
+    frame_t = np.asarray(seq.frame_t)[::stride]
+    obs, valid = np.asarray(seq.obs)[::stride], np.asarray(seq.obs_valid)[::stride]
+    gt_p, gt_q, gt_v = (np.asarray(a)[::stride] for a in (seq.gt_p, seq.gt_q, seq.gt_v))
+    acc, gyr = np.asarray(seq.imu_acc), np.asarray(seq.imu_gyr)
+    out = []
+    for k in range(k0, k1):
+        lo = frame_t[k - 1] if k > 0 else -np.inf
+        for i in np.nonzero((imu_t > lo + 1e-9) & (imu_t <= frame_t[k] + 1e-9))[0]:
+            est.process_imu(imu_t[i] - imu_t[i - 1] if i > 0 else 0.005, acc[i], gyr[i])
+        vis = np.nonzero(valid[k])[0]
+        est.process_frame(float(frame_t[k]), vis, obs[k, vis], None, None, None,
+                          oracle_state={"p": gt_p[k], "q": gt_q[k], "v": gt_v[k]})
+        out.append(est.latest_pose()[1])
+    return np.asarray(out)
+
+
+def checkpoint_resume(dev):
+    """8(b): an Estimator at phase 5's width on the smoke recipe's simulator
+    observations, CKPT_FRAMES published frames uninterrupted against a save
+    after CKPT_SAVE_AT, a load into a fresh Estimator on the card and the
+    rest. The resumed run must equal the uninterrupted one bit for bit."""
+    import torch
+
+    from plslam_torch.io import checkpoint, synthetic
+    from plslam_torch.models.estimator import Estimator
+    from plslam_torch.utils.geometry import quat_to_rot
+
+    seq = synthetic.make_sequence(params=synthetic.TrajectoryParams(**TRAJECTORY), **SEQUENCE)
+    cfg = smoke_config({"R_bc": quat_to_rot(seq.q_bc).numpy(), "p_bc": seq.p_bc.numpy()})
+    full = Estimator(cfg, device=dev)
+    p_full = _drive_synthetic(full, seq, 0, CKPT_FRAMES)
+    half = Estimator(cfg, device=dev)
+    p_half = _drive_synthetic(half, seq, 0, CKPT_SAVE_AT)
+    if not (half.initialized and half.prior is not None):
+        raise AssertionError("8(b): no initialized window with a prior to save")
+    path = os.path.join(tempfile.mkdtemp(prefix="plslam_torch_ckpt_"), "estimator.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_estimator(half, path)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    resumed = Estimator(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.load_estimator(resumed, path)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    p_res = np.concatenate([p_half, _drive_synthetic(resumed, seq, CKPT_SAVE_AT, CKPT_FRAMES)])
+    dp = float(np.abs(p_res - p_full).max())
+    dwin = max(float(np.abs(getattr(resumed, n) - getattr(full, n)).max())
+               for n in ("p", "q", "v", "ba", "bg"))
+    solved = sum(1 for m in full.metrics if "cost" in m)
+    log(f"  {CKPT_FRAMES} published frames ({solved} solved, {cfg.solver.max_features} features, "
+        f"window {cfg.solver.window_size}, {cfg.solver.dtype}), saved after {CKPT_SAVE_AT}: save "
+        f"{save_ms:.2f} ms, load {load_ms:.2f} ms, npz {os.path.getsize(path)} B; resumed against "
+        f"uninterrupted: max |Δp| {dp:.3e} m over the poses, {dwin:.3e} over the final window")
+    if dp != 0.0 or dwin != 0.0:
+        raise AssertionError(f"8(b): the resumed run is not the uninterrupted one (|Δp| {dp:.3e})")
+
+
+def _calibration_views(n_views, seed=0, noise=0.1):
+    """`tests/test_calibration.py`'s views of a 9×6 board with 4-cm squares
+    (its first 8 views are that test's), made with the port's camera."""
+    import torch
+
+    from plslam_torch.ops import cameras
+    from plslam_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    cam = cameras.PinholeRadTan.create(*CALIB_GT, dtype=torch.float64)
+    gx, gy = np.meshgrid(np.arange(9) * 0.04, np.arange(6) * 0.04)
+    obj = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    obj3 = torch.as_tensor(np.concatenate([obj, np.zeros((len(obj), 1))], axis=1))
+    views = []
+    for _ in range(n_views):
+        R = geo.so3_exp(torch.as_tensor(rng.uniform(-0.4, 0.4, 3)))
+        t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.1, 0.1), rng.uniform(0.5, 0.9)])
+        p_c = geo.quat_rotate(geo.rot_to_quat(R).expand(len(obj), 4), obj3) + torch.as_tensor(t)
+        uv = cameras.project(cam, p_c).numpy().copy()
+        views.append(uv + rng.standard_normal(uv.shape) * noise)
+    return obj, np.stack(views)
+
+
+def calibration_on_card(dev):
+    """8(c): intrinsic calibration on the card, held to the JAX test's
+    bounds, the 8-view set also to the CPU result (1e-6 in every
+    intrinsic); ms a call by CUDA events for each set."""
+    from plslam_torch.ops.calibration import calibrate_pinhole_radtan
+    from plslam_torch.utils.measure import cuda_time_ms
+
+    for n in CALIB_VIEWS:
+        obj, views = _calibration_views(n)
+        cam, rms = calibrate_pinhole_radtan(obj, views, device=dev)
+        est = np.array([float(v) for v in cam])
+        err = est - np.array(CALIB_GT)
+        ms = cuda_time_ms(lambda: calibrate_pinhole_radtan(obj, views, device=dev), reps=3,
+                          warmup=1)
+        log(f"  {n} views × {len(obj)} corners: {ms:.1f} ms a call by CUDA events; rms {rms:.5f} "
+            f"px; fx fy cx cy k1 k2 p1 p2 − truth {np.array2string(err, precision=5)}")
+        bounds = np.array([1.0, 1.0, 1.5, 1.5, 0.01, 0.03])
+        if not (cam.fx.is_cuda and rms < 0.2 and np.all(np.abs(err[:6]) < bounds)):
+            raise AssertionError(f"8(c): {n} views miss the calibration test's bounds")
+        if n == CALIB_VIEWS[0]:
+            cpu, rms_cpu = calibrate_pinhole_radtan(obj, views, device="cpu")
+            d = float(np.abs(est - np.array([float(v) for v in cpu])).max())
+            log(f"  {n} views, card against CPU: max |Δ| {d:.3e} over the intrinsics, rms "
+                f"{abs(rms - rms_cpu):.3e}")
+            if not d <= 1e-6:
+                raise AssertionError(f"8(c): the card's intrinsics are {d:.3e} from the CPU's")
+
+
+def show_track_loop(dev, run_a):
+    """8(d): phase 6(a)'s configuration with `tracker.show_track` on: PNG
+    counts (a track overlay every 4th camera frame, a match image a loop),
+    the trajectory against 6(a)'s (the visualizer runs every camera frame's
+    full tick, so it differs, as on the CPU), frames/s beside 6(a)'s, the
+    launches; the last LK call and every Hamming call held against their
+    plain versions. Returns (launches, the kernels' numbers by kernel)."""
+    import torch
+
+    from plslam_torch import runner
+    from plslam_torch.eval.metrics import ate_rmse
+    from plslam_torch.ops.kernels import hamming, lk
+
+    ts_a, ps_a, fps_a = run_a
+    path, _ = render_dataset("loop")
+    meta = np.load(os.path.join(path, "meta.npz"))
+    reference, _ = loop_configs(meta)
+    out_dir = tempfile.mkdtemp(prefix="plslam_torch_viz_")
+    cfg = dataclasses.replace(reference, output_path=out_dir,
+                              tracker=dataclasses.replace(reference.tracker, show_track=True))
+    n_cam, _ = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))))
+    with burst_kernel_calls(burst_steps_only=False, last_lk_only=True) as calls:
+        lk.LAUNCHES = hamming.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, ps, _, est, pg = runner.run_euroc(path, cfg, use_lines=False, loop_closure=True,
+                                              device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"lk_track": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
+    names = os.listdir(os.path.join(out_dir, "viz"))
+    tracks = sum(n.startswith("track_") for n in names)
+    matches = sum(n.startswith("match_") for n in names)
+    searched = [r for r in pg.stats if r["outcome"] not in ("no_window_points", "no_descriptors")]
+    refined = [e for e in pg.edges if e["loop"] and "t_pnp" in e]
+    ate = float(ate_rmse(ts, ps, meta["gt_t"], meta["gt_p"], align="yaw"))
+    common, ia, ib = np.intersect1d(np.round(ts, 6), np.round(ts_a, 6), return_indices=True)
+    dp = float(np.abs(ps[ia] - ps_a[ib]).max()) if len(common) else float("nan")
+    log(f"  show_track: {n_cam} camera frames in {wall:.2f} s = {n_cam / wall:.2f} camera "
+        f"frames/s against 6(a)'s {fps_a:.2f}; {tracks} track and {matches} match images; "
+        f"loops {pg.loop_count} ({len(refined)} refined by the relo round trip); launches "
+        f"{launches}; ATE(yaw) {ate:.4f} m; against 6(a): {len(ts)} vs {len(ts_a)} poses, max "
+        f"|Δp| {dp:.4f} m over {len(common)} common stamps")
+    checks = {
+        "track images = ⌈camera frames / 4⌉": tracks == -(-n_cam // 4),
+        "match images = loops": matches == pg.loop_count >= 1,
+        "LK launches = tracked frames": launches["lk_track"] == n_cam - 1,
+        "Hamming launches = keyframe searches": launches["hamming_matrix"] == len(searched),
+        f"≥ {MIN_POSES} finite poses": len(ts) >= MIN_POSES and bool(np.all(np.isfinite(ps))),
+        "stream ATE < 1 m (6(a)'s gate)": ate < 1.0,
+        "the trajectory is not 6(a)'s (as on the CPU)": not (
+            len(ts) == len(ts_a) and np.array_equal(ps, ps_a)),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"8(d): {failed}")
+    return launches, hold_burst_calls(calls, label="show_track")
+
+
 def main():
     import torch
 
@@ -1121,17 +1460,27 @@ def main():
     ham_rows = check_hamming_kernel(dev)
 
     log("phase 5: run_euroc on the card (binary lines, then points only)")
-    launches = run_main_path(dev)
+    launches, main_traj, main_ate = run_main_path(dev)
     time_line_tick(dev)
     run_points_only(dev)
     pallas_launches = drive_frontends(dev)
     profile_short_run(dev, frames=24)
 
     log("phase 6: the loop scene, run_euroc(loop_closure=True) on the card")
-    search_launches, search_err = run_loop_scene(dev)
+    search_launches, search_err, run_a = run_loop_scene(dev)
 
     log("phase 7: burst replay, run_euroc(burst=8) on the card")
     burst_launches, burst_rows = run_burst(dev)
+
+    log("phase 8: the command line and the tools around run_euroc on the card")
+    log("  (a) python -m plslam_torch run / eval")
+    cli_launches = cli_run((main_traj, main_ate))
+    log("  (b) checkpoint and resume")
+    checkpoint_resume(dev)
+    log("  (c) intrinsic calibration")
+    calibration_on_card(dev)
+    log("  (d) show_track on the loop scene")
+    viz_launches, viz_rows = show_track_loop(dev, run_a)
 
     print(json.dumps({"kernels": [
         {"name": "lk_track fast", "route": "cuda", "source": LK_SOURCE, "replaces": LK_FAST_REPLACES,
@@ -1152,6 +1501,18 @@ def main():
          "replaces": HAMMING_REPLACES, "launches": search_launches,
          **{**ham_rows[128, 256],
             "max_abs_err": max(search_err, ham_rows[128, 256]["max_abs_err"])}},
+        {"name": "lk_track fast, CLI run", "route": "cuda", "source": LK_SOURCE,
+         "replaces": LK_FAST_REPLACES, "launches": cli_launches["lk_track"], **lk_rows["fast"],
+         "library_ms": None},
+        {"name": "hamming_matrix, CLI run", "route": "cuda", "source": HAMMING_SOURCE,
+         "replaces": HAMMING_REPLACES, "launches": cli_launches["hamming_matrix"],
+         **ham_rows[HAMMING_SHAPES[0]]},
+        {"name": "lk_track fast, show_track", "route": "cuda", "source": LK_SOURCE,
+         "replaces": LK_FAST_REPLACES, "launches": viz_launches["lk_track"],
+         **viz_rows["lk_track"]},
+        {"name": "hamming_matrix loop search, show_track", "route": "cuda",
+         "source": HAMMING_SOURCE, "replaces": HAMMING_REPLACES,
+         "launches": viz_launches["hamming_matrix"], **viz_rows["hamming_matrix"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,13 +4,25 @@ Mirrors `plslam/`'s layout and names (`plslam_torch/utils/geometry.py` ↔
 `plslam/utils/geometry.py`, ...). It imports torch and never JAX, and
 shares nothing with `plslam`: the JAX-free modules it needs (`config.py`,
 `models/feature_table.py`, `io/euroc.py`, `io/native.py`,
-`utils/quat_np.py`, the ATE of `eval/metrics.py`) are its own copies.
+`utils/quat_np.py`, `eval/metrics.py`, `eval/viz.py`, the host half of
+`ops/calibration.py`) are its own copies.
 
-The slices ported so far are the streaming EuRoC pipeline with points and
-lines, its loop closure (keyframe DB, BRIEF search, 4-DoF pose graph and
-the relocalization round trip; `runner.run_euroc` runs it when
-`config.loop.loop_closure` is set, the default) and the synthetic runner.
-Burst mode (`run_euroc(burst>0)`) is not ported.
+The slices ported so far:
+  A. the math core and the sliding-window estimator (`run_synthetic`);
+  B. the visual-inertial initializer;
+  C. the point and line frontends, and the streaming EuRoC pipeline
+     `runner.run_euroc`;
+  D. loop closure: keyframe DB, BRIEF search, 4-DoF pose graph and the
+     relocalization round trip (on when `config.loop.loop_closure` is set,
+     the default);
+  E. offline burst replay (`run_euroc(burst=B)`);
+  G. the tools around `run_euroc`: the command line
+     (`python -m plslam_torch run|eval|parity`), estimator checkpoints in
+     the JAX package's npz format (`io/checkpoint.py`), intrinsic
+     calibration (`ops/calibration.py`), the track and loop-match
+     visualizer (`eval/viz.py`, `tracker.show_track`), ATE / RPE and TUM
+     files (`eval/metrics.py`), timers and the JSONL metrics log (`utils/`).
+The parallel modules (slice F) are not ported.
 Its entry points run on the card unless given `device="cpu"`. The TPU
 kernels are hand-written Hopper kernels: the pyramidal LK tracker
 (`csrc/lk.cu`, wrapper `ops/kernels/lk.py`) and the packed-bit Hamming
@@ -19,4 +31,4 @@ binary line descriptors and of the loop search's BRIEF descriptors,
 built by `ops/kernels/_build.py`.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

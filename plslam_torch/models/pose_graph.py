@@ -302,6 +302,7 @@ class PoseGraph:
         self.last_match = None  # match_points payload for the estimator
         self.stats = []  # per-candidate outcome of `_find_connection`
         self.base_n = 0  # keyframes [0, base_n) came from a loaded map
+        self.keep_images = False  # keep each keyframe's image (the match_image dump)
         # host milliseconds: "add_keyframe" (the whole call), "features"
         # (its corners and descriptors), "find_connection" (PnP apart),
         # "pnp", and "optimize" as (K, E, ms)
@@ -372,7 +373,9 @@ class PoseGraph:
             self.times["features"].append(1e3 * (time.perf_counter() - tf))
             entry = dict(uv=uv, valid=valid, desc=desc, cam=cam,
                          win_uv=win_uv, win_ids=win_ids, win_pts3d=win_pts3d,
-                         win_desc=win_desc, img_shape=tuple(img_t.shape))
+                         win_desc=win_desc, img_shape=tuple(img_t.shape),
+                         img=(np.asarray(img.cpu() if torch.is_tensor(img) else img, np.float32)
+                              if self.keep_images else None))
             old = self.db.query(gdesc, exclude_last=self.cfg.min_loop_gap,
                                 min_score=self.cfg.loop_min_score, always_include=self.base_n,
                                 consistency=self.cfg.loop_consistency,
@@ -517,9 +520,13 @@ class PoseGraph:
             ids = np.asarray(cur_entry["win_ids"]) if cur_entry.get("win_ids") is not None else None
             if ids is not None:
                 sel = np.nonzero(good)[0][inl]
+                win_uv = cur_entry.get("win_uv")
                 self.last_match = dict(
                     ids=ids[sel], obs_old=norm_old[inl], p_old=p_w_old,
-                    q_old=qnp.rot_to_quat(R_w_old), old_idx=i, cur_idx=j)
+                    q_old=qnp.rot_to_quat(R_w_old), old_idx=i, cur_idx=j,
+                    # pixels and the old image for the `match_image` dump
+                    uv_cur=np.asarray(win_uv)[sel] if win_uv is not None else None,
+                    uv_old=uv_old[inl], old_img=old.get("img"))
             return dict(i=i, j=j, t=rel_t, yaw=rel_yaw, w=2.0, loop=1)
         finally:
             ms = 1e3 * (time.perf_counter() - t0)

@@ -135,6 +135,13 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     `record_tracks`, when given, receives the published frames' tracks
     `{t: (ids, normalized obs)}`; it forces streaming, as in the JAX package.
 
+    `config.tracker.show_track` writes a track overlay of every 4th camera
+    frame and a match image of every loop under `<output_path>/viz/`
+    (`eval/viz.TrackVisualizer`). As in JAX it reads every camera frame's
+    tracks back, so tracked-only frames run the published frames' full
+    tick (RANSAC, detection, refill) and the trajectory differs from a run
+    without it; it forces streaming.
+
     Returns (ts, ps, qs, estimator, pose graph or None)."""
     from plslam_torch.io.euroc import EurocSequence
     from plslam_torch.models.frontend_lines import FrontendLines
@@ -145,9 +152,6 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     config = config or PLSlamConfig()
     loop_closure = config.loop.loop_closure if loop_closure is None else loop_closure
     tr = config.tracker
-    if tr.show_track:
-        raise NotImplementedError("run_euroc: config.tracker.show_track needs the track "
-                                  "visualizer, ROADMAP queue 1 item 15")
     seq = EurocSequence.load(seq_path)
     est = Estimator(config, device=device)
     cam = make_camera(config.camera)
@@ -175,6 +179,13 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             pg_file = os.path.join(pg_file, "pose_graph.npz")
         if os.path.exists(pg_file):
             pgraph.load(pg_file)
+    viz = None
+    if tr.show_track:
+        from plslam_torch.eval.viz import TrackVisualizer
+
+        viz = TrackVisualizer(config.output_path, every=4)
+        if pgraph is not None:
+            pgraph.keep_images = True  # the loop match_image dump
     stride = max(1, round(20 / tr.freq))
     max_pub = max_frames if max_frames is not None else len(seq.cam_t)
 
@@ -225,10 +236,14 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
                 uv_w = uv_all.numpy().astype(np.float64)[: len(ids_w)]
             loop = pgraph.add_keyframe(tt, p, q, img=img_k, cam=cam, win_uv=uv_w,
                                        win_pts3d=pts3d_w, win_ids=ids_w)
-            if loop is not None and pgraph.last_match is not None:
+            mm = pgraph.last_match
+            if loop is not None and mm is not None:
                 # relocalization feedback (`setReloFrame`): the next solve
                 # refines the loop jointly
-                _set_relo(pgraph.last_match)
+                _set_relo(mm)
+                if viz is not None and mm["old_img"] is not None and mm["uv_cur"] is not None:
+                    viz.match_image(img_k, mm["uv_cur"], mm["old_img"], mm["uv_old"],
+                                    tag=f"{mm['old_idx']}_{mm['cur_idx']}")
             if loop is not None and config.loop.fast_relocalization and loop["i"] < pgraph.base_n:
                 pgraph.fast_relocalize(loop)  # the edge lands in the loaded map
         if pgraph is not None:
@@ -247,9 +262,9 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
         return (est.initialized and est.prior is not None and est.relo is None
                 and relo_edge["ij"] is None)
 
-    # track recording needs every published frame's tracks on the host: it
-    # forces streaming, as in the JAX package
-    burst_on = burst > 0 and record_tracks is None
+    # track recording and the track visualizer need every frame's tracks on
+    # the host: they force streaming, as in the JAX package
+    burst_on = burst > 0 and viz is None and record_tracks is None
     n_pub = 0
     prev_cam_t = None
     n_cam = len(seq.cam_t)
@@ -293,14 +308,23 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             else:
                 img = _load(k)
             publish = k % stride == 0
-            pts_h = fp.process(img, t, want_output="defer" if publish else False, light=not publish)
+            # the visualizer reads every frame's tracks, so that every frame
+            # runs the full tick (detection and refill too), as in JAX
+            want_pts = publish or viz is not None
+            pts_h = fp.process(img, t, want_output="defer" if want_pts else False,
+                               light=not want_pts)
             k += 1
-            if not publish:
-                continue
-            if f_lines is not None:
+            ln_h = None
+            if publish and f_lines is not None:
                 pyr = fp.prev_pyr
                 ln_h = f_lines.process(pyr[0], t, oct1=pyr[1] if len(pyr) > 1 else None,
                                        want_output="defer")
+            if viz is not None:
+                uv = pts_h.get()[3]
+                viz.track_frame(img, uv, fp.track_cnt[fp.prev_valid])
+            if not publish:
+                continue
+            if ln_h is not None:
                 (ids, pts, vel, _), (ln_ids, ln_segs) = HostCopy.get_joint(pts_h, ln_h)
             else:
                 ids, pts, vel, _ = pts_h.get()

@@ -3,7 +3,8 @@ plain versions, the CUDA-graph LM solve against the eager one (also
 replayed with relo factors), the line frontend's tick, the synthetic
 runner (points only and with lines), the keyframe features and a
 `PoseGraph` replay with loops (its BRIEF searches counted as Hamming
-launches) on the card against the CPU. No JAX here (the machine with the card has none);
+launches) on the card against the CPU, and an estimator checkpoint saved
+and resumed on the card. No JAX here (the machine with the card has none);
 run them there with
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
@@ -17,7 +18,8 @@ may choose other reduction orders under capture); the line tick in float64
 on both devices: ids exact, segments 1e-8 (sums in another order); CPU vs
 card run_synthetic 1e-6 m in float64; keyframe descriptors equal but at
 BRIEF ties, global descriptors 1e-5; the float32 pose graph's edges and
-optimized poses 1e-4.
+optimized poses 1e-4; a checkpoint's tensors and the resumed run bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -293,3 +295,52 @@ def test_lm_graph_with_relo_matches_eager(dev):
     assert float((out.relo_p - st_relo.relo_p).norm()) > 1e-3
     plain, _ = graph(st, f)  # and back: the same graph without relo factors
     torch.testing.assert_close(plain.relo_p, st.relo_p, rtol=0, atol=0)
+
+
+def _drive(est, seq, k0, k1, stride=2):
+    """Published frames [k0, k1) of a synthetic sequence with index-determined
+    IMU dts and oracle initialization (`test_io._run_frames`)."""
+    imu_t = np.asarray(seq.imu_t)
+    frame_t = np.asarray(seq.frame_t)[::stride]
+    obs, valid = np.asarray(seq.obs)[::stride], np.asarray(seq.obs_valid)[::stride]
+    gt = [np.asarray(a)[::stride] for a in (seq.gt_p, seq.gt_q, seq.gt_v)]
+    for k in range(k0, k1):
+        lo = frame_t[k - 1] if k > 0 else -np.inf
+        for i in np.nonzero((imu_t > lo + 1e-9) & (imu_t <= frame_t[k] + 1e-9))[0]:
+            dt = imu_t[i] - imu_t[i - 1] if i > 0 else 0.005
+            est.process_imu(dt, np.asarray(seq.imu_acc[i]), np.asarray(seq.imu_gyr[i]))
+        vis = np.nonzero(valid[k])[0]
+        est.process_frame(float(frame_t[k]), vis, obs[k, vis], None, None, None,
+                          oracle_state={"p": gt[0][k], "q": gt[1][k], "v": gt[2][k]})
+    return est
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A float32 estimator on the card saved and loaded: the prior and the
+    preintegrations come back on the card in float32, bit for bit; a CPU
+    estimator reads the same file; the resumed run equals the uninterrupted
+    one bit for bit (both replay their own recorded CUDA graphs)."""
+    from plslam_torch.config import PLSlamConfig, SolverConfig
+    from plslam_torch.io import synthetic
+    from plslam_torch.io.checkpoint import load_estimator, save_estimator
+    from plslam_torch.models.estimator import Estimator
+
+    seq = synthetic.make_sequence(duration=3.0, n_points=100, n_lines=8, seed=5)
+    cfg = PLSlamConfig(solver=SolverConfig(max_features=48, max_line_feats=8, dtype="float32"))
+    full = _drive(Estimator(cfg, device=dev), seq, 0, 24)
+    half = _drive(Estimator(cfg, device=dev), seq, 0, 16)
+    assert half.prior is not None and half._graphs
+    path = str(tmp_path / "ck.npz")
+    save_estimator(half, path)
+    est = load_estimator(Estimator(cfg, device=dev), path)
+    for a, b in zip(est.prior, half.prior):
+        assert a.is_cuda and a.dtype == torch.float32 and torch.equal(a, b)
+    for pa, pb in zip(est.pres, half.pres):
+        assert (pa is None) == (pb is None)
+        assert pa is None or all(pa[k].is_cuda and torch.equal(pa[k], pb[k]) for k in pa)
+    cpu = load_estimator(Estimator(cfg, dtype=torch.float32, device="cpu"), path)
+    for a, b in zip(cpu.prior, half.prior):
+        assert torch.equal(a, b.cpu())
+    _drive(est, seq, 16, 24)
+    for name in ("p", "q", "v", "ba", "bg"):
+        np.testing.assert_array_equal(getattr(est, name), getattr(full, name), err_msg=name)

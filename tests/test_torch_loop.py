@@ -291,6 +291,7 @@ def replay():
     cfg = LoopConfig(loop_closure=True, min_loop_gap=40, max_keyframes=128)
     jg = jpg.PoseGraph(cfg, focal=F, R_bc=R_bc, p_bc=p_bc)
     tg = tpg.PoseGraph(cfg, focal=F, R_bc=R_bc, p_bc=p_bc, device="cpu")
+    jg.keep_images = tg.keep_images = True  # the match_image payload
     jcam = JCam.create(F, F, W / 2, H / 2)
     loops, matches = [], []
     for t, p, q, img, uv, ids, pts in loop_scene.keyframes(seq, cam):
@@ -335,6 +336,30 @@ def test_pose_graph_replay_matches_jax(replay):
     np.testing.assert_allclose(p, jp, rtol=0, atol=1e-4)
     np.testing.assert_allclose(q, jq, rtol=0, atol=1e-4)
     assert abs(tg.yaw_drift) > 0.05  # the PGO took the drift out
+
+
+def test_match_image_payload_matches_jax(replay):
+    """With `keep_images` each keyframe keeps its image and every accepted
+    loop's `last_match` carries the `match_image` payload: the matched
+    window pixels, the old keyframe's pixels (1e-6 px, as `obs_old`) and its
+    image (exact); the drawn match images then agree within the pixels of
+    those matches."""
+    from plslam.eval import viz as jviz
+    from plslam_torch.eval import viz as tviz
+
+    _, jg, tg, _, matches = replay
+    assert all(e["img"] is not None for e in tg.db.entries)
+    found = [(jm, tm) for jm, tm in matches if tm is not None]
+    assert len(found) >= 5
+    for jm, tm in found:
+        np.testing.assert_array_equal(tm["uv_cur"], jm["uv_cur"])
+        np.testing.assert_allclose(tm["uv_old"], jm["uv_old"], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(tm["old_img"], jm["old_img"])
+        assert tm["old_img"] is tg.db.entries[tm["old_idx"]]["img"]
+        cur = tg.db.entries[tm["cur_idx"]]["img"]
+        a = tviz.draw_match_image(cur, tm["uv_cur"], tm["old_img"], tm["uv_old"])
+        b = jviz.draw_match_image(cur, jm["uv_cur"], jm["old_img"], jm["uv_old"])
+        assert a.shape == (H, 2 * W) and np.mean(a != b) < 1e-3
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -94,9 +94,28 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      6(a)'s (the visualizer runs every frame's full tick, as on the CPU),
      frames/s beside 6(a)'s; its last LK call and every Hamming call held
      against the plain versions and timed for the kernels line.
-  9. one JSON line of kernel results (rows for the burst run's LK and
-     Hamming calls, the loop search's, the CLI run's and the show_track
-     run's beside the main path's), then the last line
+  9. the parallel solvers and the large-window runners at phase 5's
+     solver widths (window 10, 192 features, 64 lines): (a) 11 windows of
+     the smoke recipe's simulator through `batched_optimize_windows(
+     devices=[cuda:0])` against a loop of `optimize_window`, both timed by
+     CUDA events, float64 within 1e-8 m (the float32 gap logged); (b) one
+     window landmark-sharded, stacked L = 1, 4, 8 against `optimize_window`
+     (float64 within 1e-5 m / 1e-4 m/s; the float32 gap logged), through a
+     one-rank NCCL group (bit for bit the stacked L = 4) and through two
+     gloo ranks on cuda:0 in subprocesses (within 1e-6 of it), ms an LM
+     iteration each; (c) `consensus_distributed_solve` on a 3 × 2 grid
+     (`tests/test_mesh2d.py`'s recipe; within 2e-2 m of the truth); (d)
+     `run_synthetic_large_window` on `tests/test_large_window.py`'s recipe,
+     held to that test's assertions; (e) `run_euroc_large_window` on the
+     smoke set (kf_stride 2, a 5 × 4 grid): the live keyframe poses equal
+     phase 5's within 1e-6 m, both ATEs < 0.4 m, LK launches = tracked
+     frames, Hamming launches = published frames, its last LK call and
+     every Hamming call held against the plain versions and timed for the
+     kernels line; (f) `tests/test_large_window.py`'s images test (its
+     12-s render, 2 × 4 grid, float64) held to its assertions.
+  10. one JSON line of kernel results (rows for the burst run's LK and
+     Hamming calls, the loop search's, the CLI run's, the show_track run's
+     and the large-window run's beside the main path's), then the last line
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1432,6 +1451,533 @@ def show_track_loop(dev, run_a):
     return launches, hold_burst_calls(calls, label="show_track")
 
 
+# ---- phase 9: the parallel solvers and the large-window runners ----
+DP_BATCH = 11  # windows of 9(a): the JAX docstring's "11 EuRoC sequences"
+DP_STEP = 20  # camera frames between the first frames of 9(a)'s windows
+SHARDS = (1, 4, 8)  # 9(b)'s stacked landmark shards (192 / 8 and 64 / 8 divide)
+LM_ITERS = 8  # the estimator's
+# 9(f): `tests/test_large_window.py::test_distributed_large_window_from_images`'s recipe
+DATASETS["large_window"] = (
+    TRAJECTORY,
+    dict(duration=12.0, n_points=500, n_lines=0, seed=31, acc_noise=0.18, gyr_noise=0.009,
+         acc_bias=0.1, gyr_bias=0.004),
+    dict(h=H, w=W, max_frames=240, blob_sigma=3.0, style="textured"))
+GLOO_RANK = """import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.gloo_rank(int(sys.argv[1]), {store!r}, {window!r}, sys.argv[2])
+"""
+
+
+def smoke_windows(dev, dtype, count=DP_BATCH):
+    """`count` full-width windows (phase 5's solver widths) packed from the
+    smoke recipe's simulator, each perturbed as `tests/test_dp.py` does.
+    Returns (solver config, layout, ground-truth pairs, perturbed pairs)."""
+    import torch
+
+    from plslam_torch.io import synthetic
+    from plslam_torch.models import packing
+    from plslam_torch.models.state import layout, retract
+
+    cfg = smoke_config(np.load(os.path.join(render_dataset()[0], "meta.npz"))).solver
+    lay = layout(cfg)
+    seq = synthetic.make_sequence(params=synthetic.TrajectoryParams(**TRAJECTORY), **SEQUENCE)
+    rng = np.random.default_rng(5)
+    gt, pert = [], []
+    for b in range(count):
+        frames = list(range(b * DP_STEP, b * DP_STEP + 2 * lay.nw, 2))
+        st, f = packing.factors_from_synthetic(seq, frames, cfg, lay, dtype=dtype, device=dev)
+        d = np.zeros(lay.dim)
+        d[6: lay.nw * 6] = rng.standard_normal((lay.nw - 1) * 6) * 0.005
+        gt.append((st, f))
+        pert.append((retract(st, torch.as_tensor(d, dtype=dtype, device=dev), lay), f))
+    return cfg, lay, gt, pert
+
+
+def timed(fn):
+    """(fn(), ms) by CUDA events around one call."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lm_trace(state, f, lay, cfg, num_iters):
+    """`solver.optimize_window`'s LM loop (its default options) replayed
+    step by step. Returns (the final positions, [num_iters, 4] rows of
+    (accepted, λ of the step, the cost at the step's start, its trial
+    cost)); vmappable. 9(a) holds the positions to the solve's own, bit for
+    bit, so that the rows are the solve's."""
+    import torch
+
+    from plslam_torch.models import residuals as res
+    from plslam_torch.models import solver
+    from plslam_torch.models.state import retract, where_state
+
+    focal, lp = cfg.focal_length, cfg.line_param
+    mask = solver.free_mask(f, lay, cfg, False, False)
+    groups = res.residual_groups(state, f, lay, focal, lp)
+    st = state
+    lam = torch.full((), cfg.lm_lambda_init, dtype=state.p.dtype, device=state.p.device)
+    rows = []
+    for _ in range(num_iters):
+        pt_w, ln_w, relo_w = res.weights_of_groups(groups, cfg.cauchy_c)
+        r, J_cam, blocks = solver.linearize_blocks(st, f, lay, focal, pt_w, ln_w, mask, relo_w,
+                                                   lp)
+        delta = solver.schur_solve_blocks(r, J_cam, blocks, lay, lam, mask)
+        cost_here = solver.cost_of(r)
+        st_try = retract(st, delta, lay)
+        groups_try = res.residual_groups(st_try, f, lay, focal, lp)
+        cost_try = solver.cost_of(res.stack_of_groups(groups_try, pt_w, ln_w, relo_w))
+        accept = cost_try < cost_here
+        rows.append(torch.stack([accept.to(lam.dtype), lam, cost_here, cost_try]))
+        st = where_state(accept, st_try, st)
+        groups = tuple(torch.where(accept, a, c) for a, c in zip(groups_try, groups))
+        lam = torch.where(accept, torch.clamp(lam * 0.4, min=cfg.lm_lambda_min),
+                          torch.clamp(lam * 5.0, max=cfg.lm_lambda_max))
+    return solver.reanchor(st, state, line_param=lp).p, torch.stack(rows)
+
+
+def normal_matrix(state, f, lay, cfg):
+    """The camera block J_camᵀJ_cam of the first LM step of
+    `solver.optimize_window` (its default options); vmappable."""
+    from plslam_torch.models import residuals as res
+    from plslam_torch.models import solver
+
+    mask = solver.free_mask(f, lay, cfg, False, False)
+    groups = res.residual_groups(state, f, lay, cfg.focal_length, cfg.line_param)
+    pt_w, ln_w, relo_w = res.weights_of_groups(groups, cfg.cauchy_c)
+    _, J_cam, _ = solver.linearize_blocks(state, f, lay, cfg.focal_length, pt_w, ln_w, mask,
+                                          relo_w, cfg.line_param)
+    return J_cam.T @ J_cam
+
+
+def dp_on_card(dev):
+    """9(a): B = 11 windows through `batched_optimize_windows(devices=[cuda:0])`
+    against a loop of 11 `optimize_window` calls, both timed by CUDA events.
+
+    float64, 8 LM iterations: the positions agree within 1e-8 m. float32
+    cannot be held to that: after 8 iterations the layouts part by cm in
+    both packages, because λ falls 0.4× an accepted step from 1e-4 towards
+    float32's epsilon while the reduced camera system's 4 gauge directions
+    (x, y, z, yaw) have no curvature but λ, so at λ ~ 1e-6 its float32
+    Cholesky fails (a NaN trial cost, a rejected step) in whichever layout
+    rounding tips. So in float32: after one iteration (λ = 1e-4) each
+    layout lies within 1e-3 m of the float64 step; `lm_trace` replays both
+    solves bit for bit, and where their accept sequences part, the layout
+    that rejected had a failed trial step — a non-finite cost or one ≥ 1 %
+    above the step's start — not a near tie. Logged besides: each layout's
+    distance to the float64 solve, the first step's JᵀJ error, a one-ulp
+    nudge of the loop's input, and each window's accepts, final costs, gap
+    and distance to the truth."""
+    import torch
+
+    from plslam_torch.models import solver
+    from plslam_torch.parallel import dp
+
+    ref = {}  # float64 loop positions after 1 and LM_ITERS iterations
+    for dtype in (torch.float64, torch.float32):
+        cfg, lay, gt, pert = smoke_windows(dev, dtype)
+        states, factors = dp.stack_windows(pert)
+        batched = lambda n: dp.batched_optimize_windows(  # noqa: E731
+            states, factors, lay, cfg, num_iters=n, devices=[dev])
+        loop = lambda n: [solver.optimize_window(s, f, lay, cfg, num_iters=n)  # noqa: E731
+                          for s, f in pert]
+        (st_1, _), singles_1 = batched(1), loop(1)  # warm-up, and the one-step check
+        gap_1 = max(float((st_1.p[k] - s.p).abs().max()) for k, (s, _) in enumerate(singles_1))
+        (st_b, cost_b), ms_b = timed(lambda: batched(LM_ITERS))
+        singles, ms_l = timed(lambda: loop(LM_ITERS))
+        gaps = [float((st_b.p[k] - s.p).abs().max()) for k, (s, _) in enumerate(singles)]
+        name = str(dtype).split(".")[-1]
+        log(f"  9(a) DP, {name}: {DP_BATCH} windows (window {cfg.window_size}, "
+            f"{cfg.max_features} features, {cfg.max_line_feats} lines, {LM_ITERS} LM "
+            f"iterations): batched {ms_b:.1f} ms, a loop of {DP_BATCH} optimize_window "
+            f"{ms_l:.1f} ms (CUDA events; {ms_l / ms_b:.2f}×); max |Δp| batched vs loop "
+            f"{max(gaps):.3e} m ({gap_1:.3e} m after one LM iteration)")
+        if not torch.isfinite(cost_b).all():
+            raise AssertionError(f"9(a): non-finite batched costs {cost_b.tolist()}")
+        if dtype == torch.float64:
+            if not max(gaps) <= 1e-8:
+                raise AssertionError(f"9(a): f64 batched positions {max(gaps):.3e} m from the "
+                                     "loop's")
+            ref = {1: [s.p for s, _ in singles_1], LM_ITERS: [s.p for s, _ in singles],
+                   "H": [normal_matrix(s, f, lay, cfg) for s, f in pert]}
+            continue
+        to64 = lambda a, b: float((a.double() - b).abs().max())  # noqa: E731
+        l_1 = [s.p for s, _ in singles_1]
+        for n, b_p, l_p in ((1, st_1.p, l_1),
+                            (LM_ITERS, st_b.p, [s.p for s, _ in singles])):
+            log(f"    after {n} LM iteration(s), |Δp| to the float64 loop, batched / loop (m): "
+                + ", ".join(f"{to64(b_p[k], ref[n][k]):.2e} / {to64(l_p[k], ref[n][k]):.2e}"
+                            for k in range(DP_BATCH)))
+        if max(max(to64(p, r) for p, r in zip(ps, ref[1])) for ps in (st_1.p, l_1)) > 1e-3:
+            raise AssertionError("9(a): an f32 layout's first step is over 1e-3 m from the f64 "
+                                 "step")
+        h32 = [normal_matrix(s, f, lay, cfg) for s, f in pert]
+        hb = torch.func.vmap(lambda s, f: normal_matrix(s, f, lay, cfg))(states, factors)
+
+        def rel(h, h64):  # the largest error of the Jacobi-scaled matrix the solve factors
+            d = torch.rsqrt(torch.clamp(torch.diagonal(h64), min=1e-8))
+            return float(((h.double() - h64) * d[:, None] * d[None, :]).abs().max())
+
+        log("    the first step's camera block of JᵀJ, Jacobi-scaled, max |H - H_f64|, batched / "
+            "loop: " + ", ".join(f"{rel(hb[k], ref['H'][k]):.1e} / {rel(h32[k], ref['H'][k]):.1e}"
+                                 for k in range(DP_BATCH)))
+        up = lambda a: torch.nextafter(a, torch.full_like(a, float("inf")))  # noqa: E731
+        nudged = [solver.optimize_window(s._replace(p=up(s.p)), f, lay, cfg, num_iters=1)[0].p
+                  for s, f in pert]
+        log("    one LM iteration from positions one ulp up, |Δp| to the loop's (m): "
+            + ", ".join(f"{float((a - s.p).abs().max()):.2e}"
+                        for a, (s, _) in zip(nudged, singles_1)))
+        p_tb, rows_b = torch.func.vmap(lambda s, f: lm_trace(s, f, lay, cfg, LM_ITERS))(
+            states, factors)
+        traced = [lm_trace(s, f, lay, cfg, LM_ITERS) for s, f in pert]
+        if not (torch.equal(p_tb, st_b.p) and all(torch.equal(p, s.p) for (p, _), (s, _)
+                                                   in zip(traced, singles))):
+            raise AssertionError("9(a): the LM replay does not reproduce the f32 solves")
+        torn = []
+        for k, ((g, _), (_, rows_l)) in enumerate(zip(gt, traced)):
+            rb, rl = rows_b[k].double().cpu().numpy(), rows_l.double().cpu().numpy()
+            acc_b, acc_l = rb[:, 0].astype(int), rl[:, 0].astype(int)
+            cost = lambda r: np.where(r[:, 0] > 0, r[:, 3], r[:, 2])[-1]  # noqa: E731
+            err = [float(torch.linalg.norm(p - g.p, dim=-1).max()) for p in (st_b.p[k],
+                                                                          singles[k][0].p)]
+            line = (f"    window {k}: accepts batched {acc_b.tolist()} loop {acc_l.tolist()}; "
+                    f"|Δp| {gaps[k]:.3e} m; final cost {cost(rb):.6g} / {cost(rl):.6g}; max "
+                    f"|p - truth| {err[0]:.3e} / {err[1]:.3e} m")
+            part = np.nonzero(acc_b != acc_l)[0]
+            if len(part):
+                i = int(part[0])
+                rej = rl if acc_b[i] else rb
+                failed = not np.isfinite(rej[i, 3]) or rej[i, 3] >= 1.01 * rej[i, 2]
+                who = "loop" if acc_b[i] else "batched solve"
+                line += (f"; part at step {i} (λ {rej[i, 1]:.2e}): the {who}'s trial cost "
+                         f"{rej[i, 3]:.6g} against {rej[i, 2]:.6g} at the step's start")
+                if not failed:
+                    torn.append(k)
+            log(line)
+        if torn:
+            raise AssertionError(f"9(a): f32 windows {torn} part at a near tie, not a failed step")
+
+
+def _sharded_window(dev, dtype):
+    """9(b)'s window: the first of 9(a)'s, perturbed as
+    `tests/test_distributed.py` does (poses, velocities and biases)."""
+    import torch
+
+    from plslam_torch.models.state import retract
+
+    cfg, lay, gt, _ = smoke_windows(dev, dtype, count=1)
+    state, f = gt[0]
+    rng = np.random.default_rng(9)
+    nw = lay.nw
+    delta = np.zeros(lay.dim)
+    delta[6: nw * 6] = rng.standard_normal((nw - 1) * 6) * 0.005
+    sb = rng.standard_normal((nw, 9))
+    sb[:, 0:3] *= 0.01
+    sb[:, 3:6] *= 5e-5
+    sb[:, 6:9] *= 5e-6
+    delta[lay.off_sb: lay.off_ext] = sb.reshape(-1)
+    return cfg, lay, state, retract(state, torch.as_tensor(delta, dtype=dtype, device=dev), lay), f
+
+
+def gloo_rank(rank, store, window, out):
+    """One of 9(b)'s two gloo ranks on cuda:0: the window saved by the
+    parent, 4 landmark shards, 2 a rank."""
+    import torch
+    import torch.distributed as dist
+
+    from plslam_torch.parallel import distributed_ba as dba
+    from plslam_torch.parallel import multihost
+
+    multihost.init_distributed(init_method=f"file://{store}", world_size=2, rank=rank,
+                               backend="gloo")
+    cfg, lay, pert, f = torch.load(window, map_location="cuda:0", weights_only=False)
+    mesh = dba.make_mesh(4, dist.group.WORLD)
+    dba.distributed_optimize_window(pert, f, lay, cfg, mesh, num_iters=1)  # warm-up
+    dist.barrier()
+    (st, cost), ms = timed(lambda: dba.distributed_optimize_window(pert, f, lay, cfg, mesh,
+                                                                   num_iters=LM_ITERS))
+    torch.save({"p": st.p.cpu(), "v": st.v.cpu(), "inv_depth": st.inv_depth.cpu(),
+                "line": st.line.cpu(), "cost": cost.cpu(), "ms": ms}, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_ba_on_card(dev):
+    """9(b): one full-width window solved landmark-sharded three ways:
+    stacked L = 1, 4, 8 against `optimize_window` (f64 within
+    `test_distributed.py`'s 1e-5 m / 1e-4 m/s; the f32 gap reported);
+    through a one-rank NCCL group (bit for bit the stacked L = 4); through
+    two gloo ranks on cuda:0 (within 1e-6 m of the stacked L = 4)."""
+    import subprocess
+
+    import torch
+    import torch.distributed as dist
+
+    from plslam_torch.models import solver
+    from plslam_torch.parallel import distributed_ba as dba
+    from plslam_torch.parallel import multihost
+
+    stacked = {}
+    for dtype in (torch.float64, torch.float32):
+        cfg, lay, state, pert, f = _sharded_window(dev, dtype)
+        solver.optimize_window(pert, f, lay, cfg, num_iters=1)  # warm-up
+        (single, _), ms_s = timed(lambda: solver.optimize_window(pert, f, lay, cfg,
+                                                                 num_iters=LM_ITERS))
+        name = str(dtype).split(".")[-1]
+        log(f"  9(b) {name}: optimize_window {ms_s / LM_ITERS:.1f} ms an LM iteration; "
+            f"max |p - truth| {float(torch.linalg.norm(single.p - state.p, dim=-1).max()):.3e} m")
+        for n in SHARDS:
+            mesh = dba.make_mesh(n)
+            dba.distributed_optimize_window(pert, f, lay, cfg, mesh, num_iters=1)  # warm-up
+            (st, cost), ms = timed(lambda: dba.distributed_optimize_window(
+                pert, f, lay, cfg, mesh, num_iters=LM_ITERS))
+            dp_ = float((st.p - single.p).abs().max())
+            dv = float((st.v - single.v).abs().max())
+            log(f"  9(b) {name} stacked L = {n}: {ms / LM_ITERS:.1f} ms an LM iteration; against "
+                f"optimize_window max |Δp| {dp_:.3e} m, |Δv| {dv:.3e} m/s; cost {float(cost):.6g}")
+            if dtype == torch.float64:
+                stacked[n] = st
+                if not (dp_ <= 1e-5 and dv <= 1e-4):
+                    raise AssertionError(f"9(b): stacked L = {n} is {dp_:.3e} m / {dv:.3e} m/s "
+                                         f"from optimize_window (> 1e-5 / 1e-4)")
+        if dtype == torch.float64:
+            window = (cfg, lay, pert, f)
+
+    cfg, lay, pert, f = window
+    tmp = tempfile.mkdtemp(prefix="plslam_torch_dist_")
+    # one rank, NCCL: the reduction and the gather pass through the library
+    multihost.init_distributed(init_method=f"file://{tmp}/nccl_store", world_size=1, rank=0)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"9(b): the one-rank group runs {dist.get_backend()}, not nccl")
+    mesh = dba.make_mesh(4, dist.group.WORLD)
+    dba.distributed_optimize_window(pert, f, lay, cfg, mesh, num_iters=1)  # warm-up
+    (st, _), ms = timed(lambda: dba.distributed_optimize_window(pert, f, lay, cfg, mesh,
+                                                                num_iters=LM_ITERS))
+    dist.destroy_process_group()
+    same = all(torch.equal(getattr(st, k), getattr(stacked[4], k)) for k in st._fields)
+    log(f"  9(b) one-rank NCCL group, L = 4: {ms / LM_ITERS:.1f} ms an LM iteration; bit for bit "
+        f"the stacked L = 4: {same}")
+    if not same:
+        raise AssertionError("9(b): the one-rank NCCL solve is not the stacked solve bit for bit")
+
+    # two ranks on cuda:0 through gloo, which reduces CUDA tensors (NCCL puts
+    # no two ranks of a group on one GPU)
+    path = os.path.join(tmp, "window.pt")
+    torch.save((cfg, lay, pert, f), path)
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+    script = GLOO_RANK.format(root=ROOT, store=os.path.join(tmp, "gloo_store"), window=path)
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"9(b): gloo rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ref = stacked[4]
+    for r, out in enumerate(outs):
+        got = torch.load(out, weights_only=False)
+        gap = max(float((got[k].to(dev) - getattr(ref, k)).abs().max())
+                  for k in ("p", "v", "inv_depth", "line"))
+        log(f"  9(b) gloo rank {r} of 2 on cuda:0, 2 of 4 shards: {got['ms'] / LM_ITERS:.1f} ms an "
+            f"LM iteration; max |Δ| to the stacked L = 4 over p, v, inverse depths, lines "
+            f"{gap:.3e}")
+        if not gap <= 1e-6:
+            raise AssertionError(f"9(b): gloo rank {r} is {gap:.3e} from the stacked solve")
+
+
+def _gt_error(p, gt_p):
+    return float(np.linalg.norm(p - (gt_p - gt_p[0] + p[0]), axis=1).max())
+
+
+def consensus_2d_on_card(dev):
+    """9(c): `consensus_distributed_solve` at P = 3 × L = 2 on
+    `tests/test_mesh2d.py`'s recipe at full width (192 features, 64 line
+    slots, no lines packed, f32, 3 rounds of 6 iterations)."""
+    import torch
+
+    from plslam_torch.io import synthetic
+    from plslam_torch.models import packing
+    from plslam_torch.models.state import layout, retract
+    from plslam_torch.parallel import consensus, dp, mesh2d
+
+    cfg = smoke_config(np.load(os.path.join(render_dataset()[0], "meta.npz"))).solver
+    lay = layout(cfg)
+    n_frames = 31
+    seq = synthetic.make_sequence(duration=10.0, n_points=200, n_lines=24, seed=7)
+    kf = list(range(0, n_frames * 3, 3))
+    parts = consensus.partition_frames(n_frames, cfg.window_size)
+    rng = np.random.default_rng(4)
+    pairs = []
+    for pr in parts:
+        st_gt, f = packing.factors_from_synthetic(seq, [kf[i] for i in pr], cfg, lay,
+                                                  dtype=torch.float32, with_lines=False, device=dev)
+        delta = np.zeros(lay.dim)
+        delta[6: lay.nw * 6] = rng.standard_normal((lay.nw - 1) * 6) * 0.01
+        pairs.append((retract(st_gt, torch.as_tensor(delta, dtype=torch.float32, device=dev), lay),
+                      f))
+    st_p, f_p = dp.stack_windows(pairs)
+    mesh = mesh2d.make_mesh2d(len(parts), 2)
+    st_out, ms = timed(lambda: mesh2d.consensus_distributed_solve(st_p, f_p, lay, cfg, mesh,
+                                                                  rounds=3, num_iters=6))
+    p, _ = consensus.stitch_trajectory(st_out, parts, n_frames)
+    err = _gt_error(p, seq.gt_p.numpy()[kf])
+    log(f"  9(c) 2-D layout {len(parts)} × 2 with consensus: {ms:.1f} ms (3 rounds × 6 LM "
+        f"iterations); stitched trajectory within {err:.3e} m of the ground truth")
+    if not err < 2e-2:
+        raise AssertionError(f"9(c): stitched trajectory {err:.3e} m from the truth (≥ 2e-2)")
+
+
+def synthetic_large_window_on_card(dev):
+    """9(d): `run_synthetic_large_window` on `tests/test_large_window.py`'s
+    recipe, held to that test's assertions."""
+    import torch
+
+    from plslam_torch.config import PLSlamConfig, SolverConfig
+    from plslam_torch.eval.metrics import ate_rmse
+    from plslam_torch.io import synthetic
+    from plslam_torch.runner import run_synthetic_large_window
+
+    seq = synthetic.make_sequence(duration=20.0, n_points=200, n_lines=0, seed=13, pix_noise=0.6,
+                                  acc_noise=0.05, gyr_noise=0.003)
+    cfg = PLSlamConfig(solver=SolverConfig(max_features=96, max_line_feats=8, dtype="float64"))
+    t0 = time.perf_counter()
+    kf_t, live_p, ref_p, _, _ = run_synthetic_large_window(seq, cfg, rounds=3, num_iters=8,
+                                                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gt_t, gt_p = seq.frame_t.numpy(), seq.gt_p.numpy()
+    ate_live = float(ate_rmse(kf_t, live_p, gt_t, gt_p, align="yaw"))
+    ate_ref = float(ate_rmse(kf_t, ref_p, gt_t, gt_p, align="yaw"))
+    log(f"  9(d) run_synthetic_large_window: {len(kf_t)} keyframes in {wall:.1f} s; ATE live "
+        f"{ate_live:.4f} m, refined {ate_ref:.4f} m")
+    checks = {"≥ 31 keyframes": len(kf_t) >= 31,
+              "refined ≤ 1.02 × live": ate_ref <= ate_live * 1.02,
+              "refined < 0.9 × live or < 0.02 m": ate_ref < ate_live * 0.9 or ate_ref < 0.02}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"9(d): {failed}")
+
+
+def euroc_large_window_on_card(dev, main_traj):
+    """9(e): `run_euroc_large_window` at full width on the smoke set
+    (kf_stride 2, a 5 × 4 grid): the live trajectory against phase 5's, both
+    ATEs, the live pass's launches, its last LK call and every Hamming call
+    held against the plain versions. Returns (launches, kernels' numbers)."""
+    import torch
+
+    from plslam_torch.eval.metrics import ate_rmse
+    from plslam_torch.ops.kernels import hamming, lk
+    from plslam_torch.runner import run_euroc_large_window
+
+    path, _ = render_dataset()
+    meta = np.load(os.path.join(path, "meta.npz"))
+    cfg = smoke_config(meta)
+    n_cam, n_pub = _published(len(os.listdir(os.path.join(path, "mav0", "cam0", "data"))))
+    with burst_kernel_calls(burst_steps_only=False, last_lk_only=True) as calls:
+        lk.LAUNCHES = hamming.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kf_t, live_p, ref_p, _, est = run_euroc_large_window(path, cfg, kf_stride=2,
+                                                             mesh_shape=(5, 4), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"lk_track": lk.LAUNCHES, "hamming_matrix": hamming.LAUNCHES}
+    ts5, ps5, _ = main_traj
+    idx = np.searchsorted(np.asarray(ts5), kf_t - 1e-9)
+    idx = np.minimum(idx, len(ts5) - 1)
+    d_t = float(np.abs(np.asarray(ts5)[idx] - kf_t).max())
+    d_live = float(np.abs(np.asarray(ps5)[idx] - live_p).max())
+    ate_live = float(ate_rmse(kf_t, live_p, meta["gt_t"], meta["gt_p"], align="yaw"))
+    ate_ref = float(ate_rmse(kf_t, ref_p, meta["gt_t"], meta["gt_p"], align="yaw"))
+    log(f"  9(e) run_euroc_large_window (5 × 4 grid): {len(kf_t)} keyframes in {wall:.1f} s; the "
+        f"live keyframe poses against phase 5's max |Δp| {d_live:.3e} m; ATE live {ate_live:.4f} "
+        f"m, refined {ate_ref:.4f} m; launches {launches}")
+    checks = {"P·W + 1 keyframes": len(kf_t) == 5 * cfg.solver.window_size + 1,
+              "live = phase 5's within 1e-6 m": d_t < 1e-9 and d_live <= 1e-6,
+              f"ATE live < {ATE_LIMIT_M} m": ate_live < ATE_LIMIT_M,
+              f"ATE refined < {ATE_LIMIT_M} m": ate_ref < ATE_LIMIT_M,
+              "LK launches = tracked frames": launches["lk_track"] == n_cam - 1,
+              "Hamming launches = published frames": launches["hamming_matrix"] == n_pub}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"9(e): {failed}")
+    return launches, hold_burst_calls(calls, label="large window")
+
+
+def images_large_window_on_card(dev):
+    """9(f): `tests/test_large_window.py::test_distributed_large_window_from_images`'s
+    recipe (the 12-s render, seed 31, 2 partitions × 4 shards, f64) with its
+    assertions."""
+    import torch
+
+    from plslam_torch.config import (CameraConfig, ExtrinsicConfig, LoopConfig, PLSlamConfig,
+                                     SolverConfig, TrackerConfig)
+    from plslam_torch.eval.metrics import ate_rmse
+    from plslam_torch.runner import run_euroc_large_window
+
+    path, render_s = render_dataset("large_window")
+    meta = np.load(os.path.join(path, "meta.npz"))
+    cfg = PLSlamConfig(
+        camera=CameraConfig(image_width=W, image_height=H, fx=F, fy=F, cx=W / 2, cy=H / 2,
+                            k1=0, k2=0, p1=0, p2=0),
+        tracker=TrackerConfig(max_cnt=100, min_dist=30, equalize=True, min_score=2e-3),
+        solver=SolverConfig(max_features=96, max_line_feats=24, dtype="float64", focal_length=F),
+        extrinsic=ExtrinsicConfig(0, tuple(meta["R_bc"].reshape(-1)), tuple(meta["p_bc"])),
+        loop=LoopConfig(loop_closure=False))
+    t0 = time.perf_counter()
+    kf_t, live_p, ref_p, _, est = run_euroc_large_window(path, cfg, kf_stride=2, rounds=3,
+                                                         num_iters=8, mesh_shape=(2, 4),
+                                                         device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ate_live = float(ate_rmse(kf_t, live_p, meta["gt_t"], meta["gt_p"], align="yaw"))
+    ate_ref = float(ate_rmse(kf_t, ref_p, meta["gt_t"], meta["gt_p"], align="yaw"))
+    log(f"  9(f) from images (rendered in {render_s:.1f} s): {len(kf_t)} keyframes in {wall:.1f} "
+        f"s; ATE live {ate_live:.4f} m, refined {ate_ref:.4f} m")
+    checks = {"initialized": est.initialized,
+              "2·W + 1 keyframes": len(kf_t) == 2 * cfg.solver.window_size + 1,
+              "refined ATE finite": np.isfinite(ate_ref),
+              "refined ≤ 1.02 × live": ate_ref <= ate_live * 1.02,
+              "refined < 0.95 × live or < 0.03 m": ate_ref < ate_live * 0.95 or ate_ref < 0.03}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"9(f): {failed}")
+
+
+def run_parallel(dev, main_traj):
+    """Phase 9. Returns 9(e)'s (launches, kernels' numbers)."""
+    t0 = time.perf_counter()
+    log("  (a) DP")
+    dp_on_card(dev)
+    log("  (b) landmark-sharded BA")
+    sharded_ba_on_card(dev)
+    log("  (c) the 2-D layout with consensus")
+    consensus_2d_on_card(dev)
+    log("  (d) run_synthetic_large_window")
+    synthetic_large_window_on_card(dev)
+    log("  (e) run_euroc_large_window at full width")
+    out = euroc_large_window_on_card(dev, main_traj)
+    log("  (f) run_euroc_large_window from the JAX slow test's images")
+    images_large_window_on_card(dev)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -1482,6 +2028,9 @@ def main():
     log("  (d) show_track on the loop scene")
     viz_launches, viz_rows = show_track_loop(dev, run_a)
 
+    log("phase 9: the parallel solvers and the large-window runners on the card")
+    lw_launches, lw_rows = run_parallel(dev, main_traj)
+
     print(json.dumps({"kernels": [
         {"name": "lk_track fast", "route": "cuda", "source": LK_SOURCE, "replaces": LK_FAST_REPLACES,
          "launches": launches["lk_track"], **lk_rows["fast"], "library_ms": None},
@@ -1513,6 +2062,11 @@ def main():
         {"name": "hamming_matrix loop search, show_track", "route": "cuda",
          "source": HAMMING_SOURCE, "replaces": HAMMING_REPLACES,
          "launches": viz_launches["hamming_matrix"], **viz_rows["hamming_matrix"]},
+        {"name": "lk_track fast, large window", "route": "cuda", "source": LK_SOURCE,
+         "replaces": LK_FAST_REPLACES, "launches": lw_launches["lk_track"], **lw_rows["lk_track"]},
+        {"name": "hamming_matrix, large window", "route": "cuda", "source": HAMMING_SOURCE,
+         "replaces": HAMMING_REPLACES, "launches": lw_launches["hamming_matrix"],
+         **lw_rows["hamming_matrix"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

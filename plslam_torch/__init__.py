@@ -21,8 +21,14 @@ The slices ported so far:
      the JAX package's npz format (`io/checkpoint.py`), intrinsic
      calibration (`ops/calibration.py`), the track and loop-match
      visualizer (`eval/viz.py`, `tracker.show_track`), ATE / RPE and TUM
-     files (`eval/metrics.py`), timers and the JSONL metrics log (`utils/`).
-The parallel modules (slice F) are not ported.
+     files (`eval/metrics.py`), timers and the JSONL metrics log (`utils/`);
+  F. the parallel solvers (`parallel/`: batched window solves, landmark-
+     sharded BA, keyframe-partitioned consensus, the (kf_part, lmk) grid,
+     the process group over `torch.distributed`), the window packers
+     (`models/packing.py`) and the large-window runners
+     (`runner.run_synthetic_large_window`, `run_euroc_large_window`).
+Not ported yet: `models/assembly.py` (a validation alternative to the
+solver's Hessian assembly).
 Its entry points run on the card unless given `device="cpu"`. The TPU
 kernels are hand-written Hopper kernels: the pyramidal LK tracker
 (`csrc/lk.cu`, wrapper `ops/kernels/lk.py`) and the packed-bit Hamming

@@ -195,3 +195,15 @@ def make_sequence(duration: float = 20.0, imu_hz: float = 200.0, cam_hz: float =
         line_sp=sp3, line_ep=ep3, line_obs=line_obs, line_obs_valid=line_obs_valid,
         p_bc=T(p_bc), q_bc=q_bc, ba=T(ba), bg=T(bg),
     )
+
+
+def imu_between(seq: SyntheticSequence, t0: float, t1: float):
+    """Slice IMU samples covering [t0, t1] (boundary samples included), as the
+    reference's `getMeasurements()` pairing did with interpolation — on a
+    regular synthetic grid frame times coincide with IMU ticks, so this is a
+    pure slice. Returns (acc, gyr, dt) as float64 CPU tensors."""
+    imu_t = np.asarray(seq.imu_t)
+    i0 = int(np.searchsorted(imu_t, t0 - 1e-9))
+    i1 = int(np.searchsorted(imu_t, t1 - 1e-9))
+    sl = slice(i0, i1 + 1)
+    return seq.imu_acc[sl], seq.imu_gyr[sl], torch.diff(seq.imu_t[sl])

@@ -574,3 +574,202 @@ def run_synthetic(seq, config: PLSlamConfig | None = None, oracle_init: bool = F
             ps_out.append(p)
             qs_out.append(q)
     return np.asarray(ts_out), np.asarray(ps_out), np.asarray(qs_out), est
+
+
+def _refine_large_window(parts, factors, live_t, live_p, live_q, ba, bg, p_bc, q_bc,
+                         config: PLSlamConfig, rounds: int, num_iters: int, mesh=None,
+                         device=None):
+    """The large-window runners' refinement: partition states from the live
+    pass (poses, finite-difference velocities, the final window's biases,
+    inverse depths re-triangulated from the live poses; no ground truth),
+    one consensus BA over the stacked partitions — the batched solve, or the
+    landmark-sharded one on `mesh` (`parallel.mesh2d`) — and the stitched
+    keyframe trajectory. `factors`: one `WindowFactors` a partition of
+    `parts`. Returns (refined_p [K,3], refined_q [K,4])."""
+    from plslam_torch.models import triangulate
+    from plslam_torch.models.state import layout, zero_state
+    from plslam_torch.parallel import consensus, dp, mesh2d
+    from plslam_torch.utils import quat_np as qnp
+    from plslam_torch.utils.device import astensor
+
+    cfg = config.solver
+    lay = layout(cfg)
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+    T = lambda x: astensor(np.asarray(x, np.float64), dtype, device)  # noqa: E731
+    nw = cfg.window_size + 1
+    live_v = np.gradient(live_p, live_t, axis=0)  # finite-difference velocities
+    p_bc, q_bc = np.asarray(p_bc, np.float64), np.asarray(q_bc, np.float64)
+    states = []
+    for pr, f in zip(parts, factors):
+        st = zero_state(cfg, dtype, device)._replace(
+            p=T(live_p[pr]), q=T(live_q[pr]), v=T(live_v[pr]),
+            ba=T(np.tile(ba, (nw, 1))), bg=T(np.tile(bg, (nw, 1))), p_bc=T(p_bc), q_bc=T(q_bc))
+        # re-triangulate landmark depths from the LIVE poses
+        q_wc = qnp.quat_mul(live_q[pr], q_bc)
+        p_wc = live_p[pr] + qnp.quat_rotate(live_q[pr], np.broadcast_to(p_bc, live_p[pr].shape))
+        inv_d, ok = triangulate.triangulate_points(T(p_wc), T(q_wc), f.pt_obs, f.pt_mask,
+                                                   f.pt_start)
+        inv_d = torch.where(ok & (inv_d > 0), inv_d, torch.full_like(inv_d, 0.2))
+        # rows that fail triangulation keep a default depth but stay valid —
+        # the solver's robust loss handles them as streaming does
+        states.append(st._replace(inv_depth=inv_d * f.pt_valid + 0.2 * (1 - f.pt_valid)))
+    st_p, f_p = dp.stack_windows(zip(states, factors))
+    if mesh is None:
+        st_out = consensus.consensus_solve(st_p, f_p, lay, cfg, rounds=rounds,
+                                           num_iters=num_iters)
+    else:
+        st_out = mesh2d.consensus_distributed_solve(st_p, f_p, lay, cfg, mesh, rounds=rounds,
+                                                    num_iters=num_iters)
+    return consensus.stitch_trajectory(st_out, parts, len(live_t))
+
+
+def run_synthetic_large_window(seq, config: PLSlamConfig | None = None, frame_stride: int = 2,
+                               kf_stride: int = 5, rounds: int = 3, num_iters: int = 8,
+                               oracle_init: bool = True, device=None):
+    """Live large-window mode: stream the sequence through the ordinary
+    sliding-window estimator for the LIVE trajectory, keep every
+    `kf_stride`-th published frame as a keyframe, then refine the FULL
+    keyframe history with one keyframe-partitioned consensus BA
+    (`parallel.consensus`: partitions of window_size+1 keyframes solved at
+    once, boundary-pose consensus between rounds). Runs on the card unless
+    `device` says otherwise.
+
+    Returns (kf_t, live_p [K,3], refined_p [K,3], refined_q [K,4], est)."""
+    from plslam_torch.models import packing
+    from plslam_torch.models.state import layout
+    from plslam_torch.parallel import consensus
+
+    config = config or PLSlamConfig()
+    cfg = config.solver
+    lay = layout(cfg)
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+
+    # ---- live pass: ordinary sliding-window streaming ----
+    ts, ps, qs, est = run_synthetic(seq, config, oracle_init=oracle_init, use_lines=False,
+                                    frame_stride=frame_stride, device=device)
+    # map published outputs back to sequence frame indices by timestamp
+    frame_t = np.asarray(seq.frame_t)
+    out_idx = np.searchsorted(frame_t, np.asarray(ts) - 1e-9)
+    # keyframes: every kf_stride-th published frame, trimmed to FULL
+    # partitions — consensus_solve chain-aligns partitions through exactly
+    # one shared boundary frame, so the history must be P·window + 1 long
+    kf_sel = np.arange(0, len(ts), kf_stride)
+    n_kf = len(kf_sel)
+    if n_kf < cfg.window_size + 2:
+        raise ValueError(f"only {n_kf} keyframes — need > window_size+1")
+    n_kf = ((n_kf - 1) // cfg.window_size) * cfg.window_size + 1
+    kf_sel = kf_sel[:n_kf]
+    kf_frames = out_idx[kf_sel]
+    live_p = np.asarray(ps)[kf_sel]
+    live_q = np.asarray(qs)[kf_sel]
+    live_t = np.asarray(ts)[kf_sel]
+
+    # ---- partition + pack the full keyframe history ----
+    parts = consensus.partition_frames(n_kf, cfg.window_size)
+    factors = [packing.factors_from_synthetic(seq, [int(kf_frames[i]) for i in pr], cfg, lay,
+                                              dtype=dtype, with_lines=False,
+                                              device=est.device)[1] for pr in parts]
+    ref_p, ref_q = _refine_large_window(
+        parts, factors, live_t, live_p, live_q, est.ba[cfg.window_size], est.bg[cfg.window_size],
+        np.asarray(seq.p_bc), np.asarray(seq.q_bc), config, rounds, num_iters, device=est.device)
+    return live_t, live_p, ref_p, ref_q, est
+
+
+def _grid_shape(mesh_shape, n_ranks: int, lay, n_keyframes: int, window: int) -> tuple:
+    """The (kf_part, lmk) grid of `run_euroc_large_window`. The default is
+    JAX's rule with "devices" read as ranks: L = 4 if there are ≥ 8 ranks
+    and the capacities divide, else 1; as many rows as the ranks and the
+    keyframes allow. With several ranks the grid must hold every rank (one
+    cell a rank), where JAX would leave devices idle: a grid that does not
+    raises `ValueError`."""
+    if mesh_shape is None:
+        L = 4 if (n_ranks >= 8 and lay.max_f % 4 == 0 and lay.max_l % 4 == 0) else 1
+        n_parts_data = max((n_keyframes - 1) // window, 1)
+        mesh_shape = (max(min(n_ranks // L, n_parts_data), 1), L)
+    if n_ranks > 1 and mesh_shape[0] * mesh_shape[1] != n_ranks:
+        raise ValueError(f"the (kf_part, lmk) grid {tuple(mesh_shape)} does not hold the "
+                         f"{n_ranks} ranks of the world: pass a mesh_shape with P·L = {n_ranks} "
+                         f"(P ≤ {max((n_keyframes - 1) // window, 1)} partitions of these "
+                         "keyframes)")
+    return tuple(mesh_shape)
+
+
+def run_euroc_large_window(seq_path: str, config: PLSlamConfig | None = None, kf_stride: int = 3,
+                           rounds: int = 3, num_iters: int = 8, mesh_shape: tuple | None = None,
+                           max_frames: int | None = None, device=None):
+    """Distributed large-window refinement FROM IMAGES: stream the image
+    pipeline (`run_euroc` with the frontends' tracks recorded, loop closure
+    off), then refine the full keyframe history by keyframe-partitioned
+    consensus BA where every partition's landmark system is sharded over a
+    (kf_part, lmk) grid (`parallel.mesh2d`). Poses from the live (drifted)
+    trajectory, velocities by finite differences, biases from the
+    estimator's final window, depths re-triangulated from live poses,
+    observations from the real trackers. Runs on the card unless `device`
+    says otherwise.
+
+    mesh_shape (kf_part, lmk) defaults to JAX's rule over the ranks of the
+    world: L = 4 if there are ≥ 8 ranks and the capacities divide, else 1,
+    and P = min(ranks // L, the partitions the keyframes fill); one process
+    gives (1, 1). With more than one rank the grid spans the world's process
+    group, one cell a rank, so P·L must equal the world's size (`ValueError`
+    otherwise, the default grid included); one process holds any grid on its
+    device.
+    Returns (kf_t, live_p [K,3], refined_p [K,3], refined_q [K,4], est)."""
+    import torch.distributed as dist
+
+    from plslam_torch.io.euroc import EurocSequence
+    from plslam_torch.models import packing
+    from plslam_torch.models.state import layout
+    from plslam_torch.parallel import consensus, mesh2d, multihost
+
+    config = config or PLSlamConfig()
+    cfg = config.solver
+    lay = layout(cfg)
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+
+    # ---- live pass: the real image pipeline, tracks recorded ----
+    tracks: dict = {}
+    ts, ps, qs, est, _ = run_euroc(seq_path, config, loop_closure=False, max_frames=max_frames,
+                                   record_tracks=tracks, device=device)
+    ts = np.asarray(ts)
+    have = np.asarray([float(t) in tracks for t in ts], bool)
+    ts, ps, qs = ts[have], np.asarray(ps)[have], np.asarray(qs)[have]
+
+    # ---- grid geometry: P partitions × L landmark shards ----
+    n_dev = multihost.world_size()
+    n_part_mesh, L = _grid_shape(mesh_shape, n_dev, lay, len(range(0, len(ts), kf_stride)),
+                                 cfg.window_size)
+    assert lay.max_f % L == 0 and lay.max_l % L == 0, \
+        "max_features/max_line_feats must divide the lmk mesh axis"
+
+    kf_sel = np.arange(0, len(ts), kf_stride)
+    if len(kf_sel) < cfg.window_size + 2:
+        raise ValueError(f"only {len(kf_sel)} keyframes — need > window_size+1")
+    # the partition count must EQUAL the grid's row axis (each row owns
+    # exactly one partition); trim the history to fit
+    n_kf = n_part_mesh * cfg.window_size + 1
+    if len(kf_sel) < n_kf:
+        raise ValueError(f"need {n_kf} keyframes for a {n_part_mesh}-row mesh, "
+                         f"have {len(kf_sel)} (lower kf_stride or mesh rows)")
+    kf_sel = kf_sel[:n_kf]
+    live_t = ts[kf_sel]
+    live_p = ps[kf_sel]
+    live_q = qs[kf_sel]
+
+    # ---- pack each partition from the recorded REAL tracks ----
+    seq = EurocSequence.load(seq_path)
+    parts = consensus.partition_frames(n_kf, cfg.window_size)
+    ba = np.asarray(est.ba[cfg.window_size])
+    bg = np.asarray(est.bg[cfg.window_size])
+    factors = []
+    for pr in parts:
+        kt = [float(ts[int(kf_sel[i])]) for i in pr]
+        factors.append(packing.factors_from_tracks(
+            kt, [tracks[t][0] for t in kt], [tracks[t][1] for t in kt],
+            seq.imu_t, seq.imu_acc, seq.imu_gyr, cfg, lay, ba, bg, dtype=dtype,
+            g_norm=config.imu.g_norm, device=est.device))
+    mesh = mesh2d.make_mesh2d(n_part_mesh, L, dist.group.WORLD if n_dev > 1 else None)
+    ref_p, ref_q = _refine_large_window(parts, factors, live_t, live_p, live_q, ba, bg,
+                                        est.p_bc, est.q_bc, config, rounds, num_iters,
+                                        mesh=mesh, device=est.device)
+    return live_t, live_p, ref_p, ref_q, est

@@ -6,7 +6,7 @@ Pairing: each case's own assertions on the port's `ImuFeeder` + `Estimator`
 (an interval's dt_sum equals the frame gap to 1e-6 s off the IMU grid and
 1e-9 s on it), and the port's preintegrations equal to the JAX package's
 within 1e-12 (float64, the same samples). Time offset: the JAX test's
-window (`packing.factors_from_synthetic`, which the port does not have)
+window (the JAX package's `packing.factors_from_synthetic`, carried across)
 handed to the port's `optimize_window`: td recovered within 2e-3 s of the
 injected 12 ms and within 1e-8 s of the JAX solve's; the rolling-shutter
 term undoes a row-dependent shift to 1e-9 and is > 0.1 without it.

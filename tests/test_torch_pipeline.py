@@ -44,15 +44,21 @@ def test_pipeline_matches_synchronous(dataset):
 
 
 def test_package_has_no_jax_import():
-    """No module of the port imports JAX or the JAX package."""
+    """No module of the port imports JAX or the JAX package (slice F's among them)."""
+    seen = set()
     for root, _, files in os.walk(os.path.join(REPO, "plslam_torch")):
         for name in files:
             if name.endswith(".py"):
-                with open(os.path.join(root, name)) as fh:
+                path = os.path.join(root, name)
+                seen.add(os.path.relpath(path, REPO))
+                with open(path) as fh:
                     src = fh.read()
                 for bad in ("import jax", "from jax", "import plslam\n", "import plslam.",
                             "import plslam ", "from plslam."):
                     assert bad not in src, (name, bad)
+    slice_f = {f"plslam_torch/parallel/{m}.py"
+               for m in ("dp", "distributed_ba", "consensus", "mesh2d", "multihost")}
+    assert slice_f | {"plslam_torch/models/packing.py", "plslam_torch/runner.py"} <= seen
 
 
 def test_resolve_device_defaults_to_the_card():
@@ -89,6 +95,9 @@ seq = synthetic.make_sequence(duration=2.0, n_points=60, n_lines=12, seed=1)
 cfg = PLSlamConfig(solver=SolverConfig(max_features=32, max_line_feats=8, dtype="float64"))
 ts, ps, qs, est = run_synthetic(seq, cfg, oracle_init=True, max_frames=13, device="cpu")
 assert est.initialized and np.isfinite(ps).all() and len(ps) >= 2
+from plslam_torch.models import packing
+from plslam_torch.parallel import consensus, distributed_ba, dp, mesh2d, multihost
+from plslam_torch.runner import run_euroc_large_window, run_synthetic_large_window
 from plslam_torch.config import CameraConfig, TrackerConfig
 cfg = PLSlamConfig(
     camera=CameraConfig(image_width=320, image_height=240, fx=230.0, fy=230.0, cx=160.0, cy=120.0,

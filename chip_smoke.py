@@ -113,7 +113,30 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      every Hamming call held against the plain versions and timed for the
      kernels line; (f) `tests/test_large_window.py`'s images test (its
      12-s render, 2 × 4 grid, float64) held to its assertions.
-  10. one JSON line of kernel results (rows for the burst run's LK and
+  10. the structured normal-equation assembly (`models/assembly.py`) and
+     the last helpers, at phase 5's solver widths on 9(a)'s first window
+     (no kernel of the port is launched): (a) float64, for each line chart,
+     `assemble`'s H and b against the dense `linearize`'s JᵀJ, Jᵀr within
+     1e-9 × max (the worst relative gap logged); (b)
+     `optimize_window(structured=True)` against the blocks path after 8 LM
+     iterations, float64 within 1e-8 m, float32 the gap and both accept
+     sequences (replayed), and where they part, the step, λ and trial
+     costs; (c) float32, by CUDA events in turns, medians over 20 rounds:
+     one `assemble` (alone and with `schur_solve`), its scatter alone, one
+     `linearize_blocks` + `schur_solve_blocks`, one whole `optimize_window`
+     per path replayed from a CUDA graph (each path must capture; the
+     replay held against one eager solve); device operations and device
+     time an LM iteration per path (torch.profiler); the scatter's float adds,
+     device time and bound; (d) float64 `imu.preintegrate_sequential`
+     against `preintegrate` over one camera interval of the smoke set's
+     200-Hz IMU and over 512 steps, at `tests/test_imu.py`'s bounds, both
+     timed; (e) the run-level scenarios that the CPU tests mark `slow`
+     (`tests/robustness_scenarios.py`: frame drops, corrupted observations,
+     feature collapse, the IMU-pad overflow, oracle init with
+     `imu_rate_pose`, the incamera line chart, the deferred solve bit for
+     bit) through the port on the card at the reference's settings, with
+     the reference tests' assertions, one after another.
+  11. one JSON line of kernel results (rows for the burst run's LK and
      Hamming calls, the loop search's, the CLI run's, the show_track run's
      and the large-window run's beside the main path's), then the last line
      {"ok": true, "device": {...}}.
@@ -1507,40 +1530,29 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def lm_trace(state, f, lay, cfg, num_iters):
-    """`solver.optimize_window`'s LM loop (its default options) replayed
-    step by step. Returns (the final positions, [num_iters, 4] rows of
-    (accepted, λ of the step, the cost at the step's start, its trial
-    cost)); vmappable. 9(a) holds the positions to the solve's own, bit for
-    bit, so that the rows are the solve's."""
+def lm_trace(state, f, lay, cfg, num_iters, structured=False):
+    """`solver.optimize_window`'s LM loop (its default options, or with
+    `structured=True`) run step by step through `solver.lm_step`. Returns
+    (the final positions, [num_iters, 4] rows of (accepted, λ of the step,
+    the cost at the step's start, its trial cost)); vmappable. 9(a) holds
+    the positions to the solve's own, bit for bit, so that the rows are the
+    solve's."""
     import torch
 
     from plslam_torch.models import residuals as res
     from plslam_torch.models import solver
-    from plslam_torch.models.state import retract, where_state
 
-    focal, lp = cfg.focal_length, cfg.line_param
     mask = solver.free_mask(f, lay, cfg, False, False)
-    groups = res.residual_groups(state, f, lay, focal, lp)
+    groups = res.residual_groups(state, f, lay, cfg.focal_length, cfg.line_param)
     st = state
     lam = torch.full((), cfg.lm_lambda_init, dtype=state.p.dtype, device=state.p.device)
     rows = []
     for _ in range(num_iters):
-        pt_w, ln_w, relo_w = res.weights_of_groups(groups, cfg.cauchy_c)
-        r, J_cam, blocks = solver.linearize_blocks(st, f, lay, focal, pt_w, ln_w, mask, relo_w,
-                                                   lp)
-        delta = solver.schur_solve_blocks(r, J_cam, blocks, lay, lam, mask)
-        cost_here = solver.cost_of(r)
-        st_try = retract(st, delta, lay)
-        groups_try = res.residual_groups(st_try, f, lay, focal, lp)
-        cost_try = solver.cost_of(res.stack_of_groups(groups_try, pt_w, ln_w, relo_w))
-        accept = cost_try < cost_here
-        rows.append(torch.stack([accept.to(lam.dtype), lam, cost_here, cost_try]))
-        st = where_state(accept, st_try, st)
-        groups = tuple(torch.where(accept, a, c) for a, c in zip(groups_try, groups))
-        lam = torch.where(accept, torch.clamp(lam * 0.4, min=cfg.lm_lambda_min),
-                          torch.clamp(lam * 5.0, max=cfg.lm_lambda_max))
-    return solver.reanchor(st, state, line_param=lp).p, torch.stack(rows)
+        lam_step = lam
+        st, groups, lam, accept, cost_here, cost_try = solver.lm_step(
+            st, groups, lam, f, lay, cfg, mask, structured)
+        rows.append(torch.stack([accept.to(lam.dtype), lam_step, cost_here, cost_try]))
+    return solver.reanchor(st, state, line_param=cfg.line_param).p, torch.stack(rows)
 
 
 def normal_matrix(state, f, lay, cfg):
@@ -1978,6 +1990,286 @@ def run_parallel(dev, main_traj):
     return out
 
 
+# ---- phase 10: the structured normal-equation assembly and the last helpers ----
+LINE_CHARTS = ("world", "incamera", "instartframe")
+ASM_ROUNDS = 20  # 10(c): rounds of one call each, the calls in turns; medians kept
+PREINT_STEPS = 512  # 10(d)'s long buffer
+SCATTER_REPS = 20  # 10(c): scatters in the profiler session that counts them
+
+
+def structured_window(dev, dtype):
+    """9(a)'s first window, perturbed, at phase 5's solver widths.
+    Returns (solver config, layout, state, factors)."""
+    cfg, lay, _, pert = smoke_windows(dev, dtype, count=1)
+    return (cfg, lay) + pert[0]
+
+
+def assembly_vs_dense(dev):
+    """10(a): float64, for each line chart, `assembly.assemble`'s H and b
+    against the dense `linearize`'s JᵀJ and Jᵀr within 1e-9 × max, the
+    cost within 1e-10 relative."""
+    import torch
+
+    from plslam_torch.models import assembly, solver
+    from plslam_torch.models import residuals as res
+
+    cfg, lay, st0, f = structured_window(dev, torch.float64)
+    mask = torch.ones(lay.dim, dtype=torch.float64, device=dev)
+    worst = 0.0
+    for lp in LINE_CHARTS:
+        st = st0._replace(line=res.lines_from_world(st0, st0.line, f.ln_start, lp))
+        pt_w, ln_w, relo_w = res.robust_weights(st, f, cfg.focal_length, cfg.cauchy_c, lp)
+        r, J = solver.linearize(st, f, lay, cfg.focal_length, pt_w, ln_w, mask, relo_w, lp)
+        H, b, cost = assembly.assemble(st, f, lay, cfg.focal_length, pt_w, ln_w, relo_w, lp)
+        H_d, b_d = J.T @ J, J.T @ r
+        gap_H = float((H - H_d).abs().max() / H_d.abs().max())
+        gap_b = float((b - b_d).abs().max() / b_d.abs().max())
+        gap_c = abs(float(cost) / float(solver.cost_of(r)) - 1.0)
+        log(f"  10(a) {lp}: max |H - JᵀJ| / max |JᵀJ| {gap_H:.3e}, b {gap_b:.3e}, cost "
+            f"{gap_c:.3e} relative (D = {lay.dim}, {r.numel()} residuals)")
+        if not (gap_H <= 1e-9 and gap_b <= 1e-9 and gap_c <= 1e-10):
+            raise AssertionError(f"10(a): the structured normal equations of the {lp} chart are "
+                                 "not the dense ones")
+        worst = max(worst, gap_H, gap_b)
+    log(f"  10(a) the worst relative gap over the three charts: {worst:.3e}")
+
+
+def structured_vs_blocks(dev):
+    """10(b): `optimize_window(structured=True)` against the blocks path
+    after LM_ITERS iterations: float64 within 1e-8 m; float32 the gap and
+    both accept sequences (replayed by `lm_trace`), and where they part, the
+    step, its λ and both trial costs."""
+    import torch
+
+    from plslam_torch.models import solver
+
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        cfg, lay, st, f = structured_window(dev, dtype)
+        s_st, s_stats = solver.optimize_window(st, f, lay, cfg, num_iters=LM_ITERS, structured=True)
+        b_st, b_stats = solver.optimize_window(st, f, lay, cfg, num_iters=LM_ITERS)
+        gap = float((s_st.p - b_st.p).abs().max())
+        log(f"  10(b) {name}: structured against blocks after {LM_ITERS} LM iterations: max |Δp| "
+            f"{gap:.3e} m; accepted {int(s_stats.accepted)} / {int(b_stats.accepted)}; final cost "
+            f"{float(s_stats.cost):.8g} / {float(b_stats.cost):.8g}")
+        if not torch.isfinite(s_st.p).all():
+            raise AssertionError(f"10(b): non-finite structured positions in {name}")
+        if dtype == torch.float64:
+            if not gap <= 1e-8:
+                raise AssertionError(f"10(b): f64 structured positions {gap:.3e} m from the blocks "
+                                     "path's")
+            continue
+        rows = [lm_trace(st, f, lay, cfg, LM_ITERS, structured=s)[1].double().cpu().numpy()
+                for s in (True, False)]
+        acc = [r[:, 0].astype(int) for r in rows]
+        log(f"    accepts (replayed) structured {acc[0].tolist()}, blocks {acc[1].tolist()}; λ "
+            f"structured {[float(f'{x:.3g}') for x in rows[0][:, 1]]}")
+        part = np.nonzero(acc[0] != acc[1])[0]
+        if len(part):
+            i = int(part[0])
+            log(f"    the sequences part at step {i} (λ {rows[0][i, 1]:.2e} / {rows[1][i, 1]:.2e}): "
+                f"trial cost structured {rows[0][i, 3]:.8g} against {rows[0][i, 2]:.8g} at the "
+                f"step's start, blocks {rows[1][i, 3]:.8g} against {rows[1][i, 2]:.8g}")
+        else:
+            log("    the accept sequences agree at every step")
+
+
+def scatter_bound(blocks, D):
+    """(least ms, what bounds it, float adds) of `assembly.scatter` on these
+    blocks: each input (indices int64, J, r) read once and H, b written once,
+    against the products JᵀJ, Jᵀr and the scattered adds at the float32 rate
+    outside the tensor cores."""
+    n_bytes, n_ops, adds = 4 * (D * D + D), 0, 0
+    for idx, J, r in blocks:
+        S, m, n = J.shape
+        n_bytes += idx.numel() * idx.element_size() + (J.numel() + r.numel()) * J.element_size()
+        adds += S * n * (n + 1)
+        n_ops += 2 * S * m * n * (n + 1)
+    ms, by = bound(n_bytes, n_ops + adds)
+    return ms, by, adds
+
+
+def device_ops(fn, reps=1):
+    """(device operations, device ms) a call of `fn`, from torch.profiler's
+    raw device events over `reps` calls in one session (their mean). A
+    session can keep no record (see `measure.device_us`; a session of one
+    scatter kept none three times running on the card): it is then run
+    again, up to PROFILER_SESSIONS sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plslam_torch.utils.measure import PROFILER_SESSIONS
+
+    for _ in range(PROFILER_SESSIONS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if ev:
+            return len(ev) / reps, 1e-6 * sum(e.duration_ns() for e in ev) / reps
+    raise AssertionError(f"the profiler kept no device event in {PROFILER_SESSIONS} sessions")
+
+
+def time_structured(dev):
+    """10(c), float32 (the estimator's dtype), a record and no gate: one
+    linearization + solve per path (the scatter of the structured one
+    apart), and one whole `optimize_window` per path replayed from a CUDA
+    graph (each path captures; its replay held against one eager solve), by
+    CUDA events in turns (medians over ASM_ROUNDS rounds); device operations
+    per LM iteration per path; the scatter's adds, its device time and its
+    bound."""
+    import torch
+
+    from plslam_torch.models import assembly, solver
+    from plslam_torch.models import residuals as res
+    from plslam_torch.utils.cuda_graph import CudaGraph
+
+    cfg, lay, st, f = structured_window(dev, torch.float32)
+    focal, lp = cfg.focal_length, cfg.line_param
+    mask = solver.free_mask(f, lay, cfg, False, False)
+    pt_w, ln_w, relo_w = res.weights_of_groups(res.residual_groups(st, f, lay, focal, lp),
+                                               cfg.cauchy_c)
+    lam = torch.full((), cfg.lm_lambda_init, dtype=torch.float32, device=dev)
+    _, _, blocks = assembly.factor_blocks(st, f, lay, focal, pt_w, ln_w, relo_w, lp)
+
+    def structured_step():
+        H, b, _ = assembly.assemble(st, f, lay, focal, pt_w, ln_w, relo_w, lp)
+        return solver.schur_solve(H * mask[:, None] * mask[None, :], b * mask, lay, lam, mask)
+
+    def blocks_step():
+        r, J_cam, bl = solver.linearize_blocks(st, f, lay, focal, pt_w, ln_w, mask, relo_w, lp)
+        return solver.schur_solve_blocks(r, J_cam, bl, lay, lam, mask)
+
+    def solve(structured, iters=LM_ITERS):
+        return lambda s, ff: solver.optimize_window(s, ff, lay, cfg, num_iters=iters,
+                                                    structured=structured)
+
+    fns = {
+        "assemble": lambda: assembly.assemble(st, f, lay, focal, pt_w, ln_w, relo_w, lp),
+        "assemble + schur_solve": structured_step,
+        "  of which the scatter (4 × 2 index_add_)": lambda: assembly.scatter(blocks, lay.dim),
+        "linearize_blocks + schur_solve_blocks": blocks_step,
+    }
+    for name, structured in (("structured", True), ("blocks", False)):
+        graph = CudaGraph(solve(structured), st, f)
+        fns[f"optimize_window {name}, CUDA graph"] = lambda g=graph: g(st, f)
+        g_st = graph(st, f)[0]
+        e_st = solve(structured)(st, f)[0]
+        log(f"  10(c) {name}: the graph's replay against the eager solve, max |Δp| "
+            f"{float((g_st.p - e_st.p).abs().max()):.3e} m")
+    for fn in fns.values():
+        fn()
+    ms = {name: [] for name in fns}
+    for _ in range(ASM_ROUNDS):
+        for name, fn in fns.items():
+            ms[name].append(timed(fn)[1])
+    for name, v in ms.items():
+        log(f"  10(c) {name}: median {np.median(v):.3f} ms over {ASM_ROUNDS} rounds (min "
+            f"{min(v):.3f}, max {max(v):.3f})")
+    for name, structured in (("structured", True), ("blocks", False)):
+        n1, t1 = device_ops(lambda: solve(structured, 1)(st, f))
+        n3, t3 = device_ops(lambda: solve(structured, 3)(st, f))
+        log(f"  10(c) {name}: {(n3 - n1) / 2:.0f} device operations and {(t3 - t1) / 2:.3f} ms of "
+            f"device time an LM iteration ({n1:g} operations in a 1-iteration solve)")
+    n_sc, t_sc = device_ops(lambda: assembly.scatter(blocks, lay.dim), reps=SCATTER_REPS)
+    b_ms, b_by, adds = scatter_bound(blocks, lay.dim)
+    log(f"  10(c) the scatter: {adds} float adds into H and b, {n_sc:g} device operations, "
+        f"{t_sc:.4f} ms device time (means over {SCATTER_REPS} calls); bound "
+        f"{b_ms:.3e} ms ({b_by}; {HBM_BYTES_PER_S:.3g} B/s, {OPS_PER_S:.3g} float32 op/s)")
+
+
+def preintegration_on_card(dev):
+    """10(d): `imu.preintegrate_sequential` (the reference's step-by-step
+    recursion) against the associative `imu.preintegrate` on the card, float64,
+    over one camera interval of the smoke set's 200-Hz IMU and over
+    PREINT_STEPS steps: `tests/test_imu.py`'s bounds (1e-8 relative, the
+    covariance 1e-7, +1e-12 absolute); both timed by CUDA events (median of
+    2 rounds in turns)."""
+    import torch
+
+    from plslam_torch.io import synthetic
+    from plslam_torch.ops import imu
+
+    seq = synthetic.make_sequence(params=synthetic.TrajectoryParams(**TRAJECTORY), **SEQUENCE)
+    noise = imu.ImuNoise.euroc(torch.float64, dev)
+    n = PREINT_STEPS
+    cases = {
+        "one camera interval": synthetic.imu_between(seq, float(seq.frame_t[0]),
+                                                     float(seq.frame_t[1])),
+        "a long buffer": (seq.imu_acc[:n + 1], seq.imu_gyr[:n + 1], torch.diff(seq.imu_t[:n + 1])),
+    }
+    for label, raw in cases.items():
+        acc, gyr, dt = (x.to(dtype=torch.float64, device=dev) for x in raw)
+        z = torch.zeros(3, dtype=torch.float64, device=dev)
+        run = {"sequential": lambda: imu.preintegrate_sequential(acc, gyr, dt, z, z, noise),
+               "associative": lambda: imu.preintegrate(acc, gyr, dt, z, z, noise)}
+        out = {k: fn() for k, fn in run.items()}
+        worst = 0.0
+        for field in ("alpha", "beta", "gamma", "jac", "cov", "dt_sum"):
+            a, b = getattr(out["associative"], field), getattr(out["sequential"], field)
+            tol = 1e-7 if field == "cov" else 1e-8
+            err = float(((a - b).abs() / (1e-12 + tol * b.abs())).max())
+            worst = max(worst, err)
+        ms = {k: [] for k in run}
+        for _ in range(2):
+            for k, fn in run.items():
+                ms[k].append(timed(fn)[1])
+        log(f"  10(d) {label} ({dt.numel()} steps): associative within "
+            f"{worst:.3f} × the bound of the sequential; sequential {np.median(ms['sequential']):.3f} ms, "
+            f"associative {np.median(ms['associative']):.3f} ms (CUDA events)")
+        if not worst <= 1.0:
+            raise AssertionError(f"10(d): preintegrate disagrees with the sequential recursion "
+                                 f"over {label}")
+
+
+# 10(e): (label, function of `tests/robustness_scenarios.py`)
+SCENARIOS = (("frame drops", "frame_drops"),
+             ("corrupted observations", "corrupted_observations"),
+             ("feature collapse → re-initialization", "feature_collapse"),
+             ("IMU-pad overflow forces a keyframe", "imu_pad_overflow"),
+             ("oracle init, points and lines, imu_rate_pose", "oracle_points_lines"),
+             ("the incamera line chart", "anchored_line_chart"),
+             ("deferred solve bit for bit", "deferred_solve"))
+
+
+def scenarios_on_card(dev):
+    """10(e): the run-level scenarios that the CPU tests mark `slow`
+    (`tests/robustness_scenarios.py`), on the card at the reference's
+    settings, one after another, each held to the reference test's
+    assertions (a failed one raises)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import robustness_scenarios as scen
+
+    t_all = time.perf_counter()
+    for label, name in SCENARIOS:
+        t0 = time.perf_counter()
+        out = getattr(scen, name)(dev)
+        log(f"  10(e) {label}: the reference's assertions hold; "
+            + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in out.items() if np.isscalar(v))
+            + f"; {time.perf_counter() - t0:.1f} s")
+    log(f"  10(e) {len(SCENARIOS)} scenarios in {time.perf_counter() - t_all:.1f} s")
+
+
+def run_structured(dev):
+    """Phase 10."""
+    t0 = time.perf_counter()
+    log("  (a) structured normal equations against the dense ones, float64")
+    assembly_vs_dense(dev)
+    log("  (b) optimize_window(structured=True) against the blocks path")
+    structured_vs_blocks(dev)
+    log("  (c) times on the card")
+    time_structured(dev)
+    log("  (d) the sequential IMU recursion against preintegrate")
+    preintegration_on_card(dev)
+    log("  (e) the run-level scenarios")
+    scenarios_on_card(dev)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2030,6 +2322,9 @@ def main():
 
     log("phase 9: the parallel solvers and the large-window runners on the card")
     lw_launches, lw_rows = run_parallel(dev, main_traj)
+
+    log("phase 10: the structured normal-equation assembly and the last helpers on the card")
+    run_structured(dev)
 
     print(json.dumps({"kernels": [
         {"name": "lk_track fast", "route": "cuda", "source": LK_SOURCE, "replaces": LK_FAST_REPLACES,

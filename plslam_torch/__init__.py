@@ -26,9 +26,16 @@ The slices ported so far:
      sharded BA, keyframe-partitioned consensus, the (kf_part, lmk) grid,
      the process group over `torch.distributed`), the window packers
      (`models/packing.py`) and the large-window runners
-     (`runner.run_synthetic_large_window`, `run_euroc_large_window`).
-Not ported yet: `models/assembly.py` (a validation alternative to the
-solver's Hessian assembly).
+     (`runner.run_synthetic_large_window`, `run_euroc_large_window`);
+  H. the structured normal-equation assembly (`models/assembly.py`,
+     `solver.optimize_window(structured=True)`: per-factor local jacobians
+     and one scatter-add per factor type) and the last helpers
+     (`cameras.pixel_to_normalized`, `lines.trim_line_to_segment`,
+     `imu.preintegrate_sequential`, `geometry.so3_log`,
+     `Estimator.imu_rate_pose`).
+The port has a counterpart of every function, class and method of
+`plslam/`, apart from the TPU-only code and the Pallas kernels that
+`tests/test_torch_coverage.py` lists with their stand-ins.
 Its entry points run on the card unless given `device="cpu"`. The TPU
 kernels are hand-written Hopper kernels: the pyramidal LK tracker
 (`csrc/lk.cu`, wrapper `ops/kernels/lk.py`) and the packed-bit Hamming
@@ -37,4 +44,4 @@ binary line descriptors and of the loop search's BRIEF descriptors,
 built by `ops/kernels/_build.py`.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

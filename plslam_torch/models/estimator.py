@@ -632,6 +632,13 @@ class Estimator:
              else max(min(self.frame_count, self.cfg.window_size) - 1, 0))
         return self.timestamps[k], self.p[k].copy(), self.q[k].copy()
 
+    def imu_rate_pose(self):
+        """IMU-rate propagated odometry: the newest slot as `process_imu`
+        dead-reckons it between solves (the reference's `predict()` →
+        `pubLatestOdometry`). Returns host copies (p, q, v)."""
+        k = min(self.frame_count, self.cfg.window_size)
+        return self.p[k].copy(), self.q[k].copy(), self.v[k].copy()
+
 
 def backend_tick(st, f, solvable, tri_need, fb4, lneed, ln_active2,
                  lay, cfg, ee: bool, etd: bool, iters: int, marg_mode: str, graphs=None):

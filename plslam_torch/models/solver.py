@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from plslam_torch.config import SolverConfig
+from plslam_torch.models import assembly
 from plslam_torch.models import residuals as res
 from plslam_torch.models.state import TangentLayout, WindowState, retract, where_state
 from plslam_torch.ops.imu import cholesky
@@ -216,6 +217,37 @@ def cost_of(r):
     return 0.5 * torch.sum(r * r)
 
 
+def lm_step(st, groups, lam, f, lay: TangentLayout, cfg: SolverConfig, mask,
+            structured: bool = False, dense: bool = False):
+    """One LM iteration of `optimize_window`: linearize at `st` with the
+    IRLS weights of the carried groups (the UNWEIGHTED residuals at `st`,
+    no re-evaluation), solve with damping `lam`, try the step and keep it if
+    the cost falls. Returns (state, groups, λ after the step, accepted, the
+    cost at the step's start, the trial cost)."""
+    focal, lp = cfg.focal_length, cfg.line_param
+    pt_w, ln_w, relo_w = res.weights_of_groups(groups, cfg.cauchy_c)
+    if structured:
+        H, b, cost_here = assembly.assemble(st, f, lay, focal, pt_w, ln_w, relo_w, lp)
+        delta = schur_solve(H * mask[:, None] * mask[None, :], b * mask, lay, lam, mask)
+    elif dense:
+        r, J = linearize(st, f, lay, focal, pt_w, ln_w, mask, relo_w, lp)
+        delta = schur_solve(J.T @ J, J.T @ r, lay, lam, mask)
+        cost_here = cost_of(r)
+    else:
+        r, J_cam, blocks = linearize_blocks(st, f, lay, focal, pt_w, ln_w, mask, relo_w, lp)
+        delta = schur_solve_blocks(r, J_cam, blocks, lay, lam, mask)
+        cost_here = cost_of(r)
+    st_try = retract(st, delta, lay)
+    groups_try = res.residual_groups(st_try, f, lay, focal, lp)
+    cost_try = cost_of(res.stack_of_groups(groups_try, pt_w, ln_w, relo_w))
+    accept = cost_try < cost_here
+    st = where_state(accept, st_try, st)
+    groups = tuple(torch.where(accept, a, c) for a, c in zip(groups_try, groups))
+    lam_next = torch.where(accept, torch.clamp(lam * 0.4, min=cfg.lm_lambda_min),
+                           torch.clamp(lam * 5.0, max=cfg.lm_lambda_max))
+    return st, groups, lam_next, accept, cost_here, cost_try
+
+
 def optimize_window(
     state: WindowState,
     f: res.WindowFactors,
@@ -225,13 +257,17 @@ def optimize_window(
     estimate_td: bool = False,
     num_iters: int = 8,
     freeze_frames: tuple = (),
+    structured: bool = False,
     extra_pinned: tuple = (),
     pin_mask=None,
     dense: bool = False,
 ):
     """Run the windowed LM solve; returns (state', stats)
-    (`Estimator::optimization()` equivalent). `dense=True` linearizes over
-    the full tangent (the cross-check of `linearize_blocks`)."""
+    (`Estimator::optimization()` equivalent). The default linearization is
+    `linearize_blocks`; `dense=True` linearizes over the full tangent (the
+    cross-check of `linearize_blocks`); `structured=True` assembles the
+    normal equations factor by factor (`assembly.assemble`: per-factor
+    local jacobians and one scatter-add per factor type)."""
     focal = cfg.focal_length
     lp = cfg.line_param
     mask = free_mask(f, lay, cfg, estimate_extrinsic, estimate_td, freeze_frames, extra_pinned)
@@ -247,24 +283,8 @@ def optimize_window(
     cost = cost0
     naccept = torch.zeros((), dtype=torch.int32, device=state.p.device)
     for _ in range(num_iters):
-        # the carried groups are the UNWEIGHTED residuals at `st` — this
-        # iteration's IRLS weights come from them, no re-evaluation
-        pt_w, ln_w, relo_w = res.weights_of_groups(groups, cfg.cauchy_c)
-        if dense:
-            r, J = linearize(st, f, lay, focal, pt_w, ln_w, mask, relo_w, lp)
-            delta = schur_solve(J.T @ J, J.T @ r, lay, lam, mask)
-        else:
-            r, J_cam, blocks = linearize_blocks(st, f, lay, focal, pt_w, ln_w, mask, relo_w, lp)
-            delta = schur_solve_blocks(r, J_cam, blocks, lay, lam, mask)
-        cost_here = cost_of(r)
-        st_try = retract(st, delta, lay)
-        groups_try = res.residual_groups(st_try, f, lay, focal, lp)
-        cost_try = cost_of(res.stack_of_groups(groups_try, pt_w, ln_w, relo_w))
-        accept = cost_try < cost_here
-        st = where_state(accept, st_try, st)
-        groups = tuple(torch.where(accept, a, c) for a, c in zip(groups_try, groups))
-        lam = torch.where(accept, torch.clamp(lam * 0.4, min=cfg.lm_lambda_min),
-                          torch.clamp(lam * 5.0, max=cfg.lm_lambda_max))
+        st, groups, lam, accept, cost_here, cost_try = lm_step(st, groups, lam, f, lay, cfg, mask,
+                                                               structured, dense)
         cost = torch.where(accept, cost_try, cost_here)
         naccept = naccept + accept.to(torch.int32)
 

@@ -270,6 +270,11 @@ def lift(cam, uv, iters: int = 5):
     return _pinhole_lift(cam, uv, iters)
 
 
+def pixel_to_normalized(cam, uv, iters: int = 8):
+    """`lift` with 8 undistortion iterations by default."""
+    return lift(cam, uv, iters)
+
+
 def normalized_to_pixel(cam, mn):
     """Normalized z=1 coords -> pixel: project the ray (x, y, 1)."""
     if isinstance(cam, PinholeRadTan):

@@ -132,6 +132,82 @@ def dead_reckon(p, v, q, acc, gyr, dt, ba, bg, g):
     return p_out, v + torch.sum(dv, dim=0), q_new[-1]
 
 
+def _midpoint_step(carry, inp, noise_q):
+    """One midpoint step (the body of `midPointIntegration`): the carry
+    (α, β, γ, J, P, t) advanced by one sample pair
+    (acc₀, gyr₀, acc₁, gyr₁, δt, ba, bg)."""
+    alpha, beta, gamma, J, P, t = carry
+    acc0, gyr0, acc1, gyr1, dt, ba, bg = inp
+    dtype, device = alpha.dtype, alpha.device
+
+    w_mid = 0.5 * (gyr0 + gyr1) - bg
+    gamma_new = quat_normalize(quat_mul(gamma, quat_exp(w_mid * dt)))
+    R0 = quat_to_rot(gamma)
+    R1 = quat_to_rot(gamma_new)
+    a0 = acc0 - ba
+    a1 = acc1 - ba
+    a_mid = 0.5 * (quat_rotate(gamma, a0) + quat_rotate(gamma_new, a1))
+    alpha_new = alpha + beta * dt + 0.5 * a_mid * dt * dt
+    beta_new = beta + a_mid * dt
+
+    # error-state jacobians (the reference's midpoint F, V)
+    I3 = torch.eye(3, dtype=dtype, device=device)
+    sk_w = skew(w_mid)
+    R1a1 = R1 @ skew(a1)
+    x = R0 @ skew(a0) + R1a1 @ (I3 - sk_w * dt)
+    F = torch.zeros((15, 15), dtype=dtype, device=device)
+    F[0:3, 0:3] = I3
+    F[0:3, 3:6] = -0.25 * dt * dt * x
+    F[0:3, 6:9] = I3 * dt
+    F[0:3, 9:12] = -0.25 * (R0 + R1) * dt * dt
+    F[0:3, 12:15] = 0.25 * R1a1 * dt * dt * dt
+    F[3:6, 3:6] = I3 - sk_w * dt
+    F[3:6, 12:15] = -I3 * dt
+    F[6:9, 3:6] = -0.5 * dt * x
+    F[6:9, 6:9] = I3
+    F[6:9, 9:12] = -0.5 * (R0 + R1) * dt
+    F[6:9, 12:15] = 0.5 * R1a1 * dt * dt
+    F[9:12, 9:12] = I3
+    F[12:15, 12:15] = I3
+
+    V = torch.zeros((15, 18), dtype=dtype, device=device)
+    V[0:3, 0:3] = 0.25 * R0 * dt * dt
+    v01 = -0.125 * R1a1 * dt * dt * dt
+    V[0:3, 3:6] = v01
+    V[0:3, 6:9] = 0.25 * R1 * dt * dt
+    V[0:3, 9:12] = v01
+    V[3:6, 3:6] = 0.5 * I3 * dt
+    V[3:6, 9:12] = 0.5 * I3 * dt
+    V[6:9, 0:3] = 0.5 * R0 * dt
+    v61 = -0.25 * R1a1 * dt * dt
+    V[6:9, 3:6] = v61
+    V[6:9, 6:9] = 0.5 * R1 * dt
+    V[6:9, 9:12] = v61
+    V[9:12, 12:15] = I3 * dt
+    V[12:15, 15:18] = I3 * dt
+
+    P_new = F @ P @ F.T + (V * noise_q[None, :]) @ V.T
+    return alpha_new, beta_new, gamma_new, F @ J, P_new, t + dt
+
+
+def preintegrate_sequential(acc, gyr, dt, ba, bg, noise: ImuNoise) -> Preintegration:
+    """The reference-shaped sequential recursion (`IntegrationBase::
+    propagate` one step after another, each depending on the last): the
+    ground truth `preintegrate` is held against. Not on the solver's path."""
+    dtype, device = acc.dtype, acc.device
+    ba = torch.as_tensor(ba, dtype=dtype, device=device)
+    bg = torch.as_tensor(bg, dtype=dtype, device=device)
+    noise_q = _noise_diag(noise, dtype, device)
+    carry = (torch.zeros(3, dtype=dtype, device=device), torch.zeros(3, dtype=dtype, device=device),
+             quat_identity(dtype, device), torch.eye(15, dtype=dtype, device=device),
+             torch.zeros((15, 15), dtype=dtype, device=device),
+             torch.zeros((), dtype=dtype, device=device))
+    for i in range(dt.shape[0]):
+        carry = _midpoint_step(carry, (acc[i], gyr[i], acc[i + 1], gyr[i + 1], dt[i], ba, bg),
+                               noise_q)
+    return Preintegration(*carry, ba, bg)
+
+
 def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise) -> Preintegration:
     """Integrate N steps from boundary samples acc/gyr [N+1,3], dt [N]
     (`IntegrationBase::propagate` over the whole buffer; `repropagate` is

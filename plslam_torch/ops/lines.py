@@ -117,3 +117,9 @@ def closest_point_on_line(L, p):
     p0 = cross(v, n) / torch.clamp(v2, min=1e-12)
     t = torch.sum((p - p0) * v, dim=-1, keepdim=True) / torch.clamp(v2, min=1e-12)
     return p0 + t * v
+
+
+def trim_line_to_segment(L, s_w_dir, e_w_dir):
+    """3D endpoints of an infinite line for two viewing rays: the line's
+    closest points to the rays' points (a visualization helper)."""
+    return closest_point_on_line(L, s_w_dir), closest_point_on_line(L, e_w_dir)

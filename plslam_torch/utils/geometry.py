@@ -162,6 +162,10 @@ def so3_exp(dtheta):
     return quat_to_rot(quat_exp(dtheta))
 
 
+def so3_log(R):
+    return quat_log(rot_to_quat(R))
+
+
 def ypr_to_rot(ypr):
     """[yaw, pitch, roll] (radians) -> R = Rz(y) Ry(p) Rx(r)."""
     y, p, r = ypr[..., 0], ypr[..., 1], ypr[..., 2]

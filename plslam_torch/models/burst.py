@@ -74,6 +74,7 @@ from plslam_torch.models.estimator import _PRE_KEYS, IMU_PAD, ImuBuffer, backend
 from plslam_torch.models.state import WindowState, cam_poses
 from plslam_torch.ops import imu as imu_ops
 from plslam_torch.ops.cameras import normalized_to_pixel
+from plslam_torch.utils import timers
 from plslam_torch.utils.device import HostCopy
 from plslam_torch.utils.geometry import quat_identity
 
@@ -380,6 +381,7 @@ class BurstStep:
 
         # ---- solve + marginalize
         kf_host = bool(kf)  # the step's one read back
+        timers.count("host_wait")
         st_out, stats, prior_new, aux = backend_tick(
             st, f, solvable, tri_need, fb4, lneed, ln_active2, est.lay, est.cfg,
             marg_mode="old" if kf_host else "new", graphs=est._graphs, **self.kw)

@@ -34,6 +34,7 @@ from plslam_torch.models.state import WindowState, cam_poses, layout, zero_state
 from plslam_torch.ops import imu as imu_ops
 from plslam_torch.utils import cuda_graph
 from plslam_torch.utils import quat_np as qnp
+from plslam_torch.utils import timers
 from plslam_torch.utils.device import HostCopy, astensor, resolve_device
 from plslam_torch.utils.geometry import rot_to_quat
 
@@ -230,79 +231,85 @@ class Estimator:
         oracle_state: optional {p,q,v} ground truth for the newest frame —
         bootstrap mode standing in for `initialStructure()` in tests."""
         self.finalize()
-        fc = min(self.frame_count, self.cfg.window_size)
-        # restart handshake: non-monotonic or >1 s gap ⇒ full reset
-        last_t = self.timestamps[max(fc - 1, 0)] if self.frame_count > 0 else None
-        if last_t is not None and (t < last_t - 1e-9 or t - last_t > 1.0):
-            self.clear_state()
-            fc = 0
-        self.timestamps[fc] = t
-        self.td_pair[fc] = self.td
-        self._close_interval(fc)
+        with timers.span("estimator.process_frame", frame=t):
+            fc = min(self.frame_count, self.cfg.window_size)
+            # restart handshake: non-monotonic or >1 s gap ⇒ full reset
+            last_t = self.timestamps[max(fc - 1, 0)] if self.frame_count > 0 else None
+            if last_t is not None and (t < last_t - 1e-9 or t - last_t > 1.0):
+                self.clear_state()
+                fc = 0
+            self.timestamps[fc] = t
+            self.td_pair[fc] = self.td
+            with timers.span("estimator.preintegrate"):
+                self._close_interval(fc)
 
-        self.pt_table.add_frame(fc, pt_ids, pt_obs, pt_vel)
-        if ln_ids is not None and len(ln_ids):
-            self.ln_table.add_frame(fc, ln_ids, ln_obs)
+            with timers.span("estimator.tables"):
+                self.pt_table.add_frame(fc, pt_ids, pt_obs, pt_vel)
+                if ln_ids is not None and len(ln_ids):
+                    self.ln_table.add_frame(fc, ln_ids, ln_obs)
 
-        if not self.ex_calibrated and fc >= 1:
-            self._calibrate_extrinsic_step(fc)
+                if not self.ex_calibrated and fc >= 1:
+                    self._calibrate_extrinsic_step(fc)
 
-        keyframe = self.pt_table.parallax_keyframe_decision(fc)
-        marg_flag = MARGIN_OLD if keyframe else MARGIN_SECOND_NEW
-        # a SECOND_NEW merge that would overflow IMU_PAD forces a keyframe
-        nw = self.cfg.window_size
-        if (marg_flag == MARGIN_SECOND_NEW and self.frame_count >= nw
-                and len(self.imu_bufs[nw - 1].dt) + len(self.imu_bufs[nw].dt) > IMU_PAD):
-            keyframe = True
-            marg_flag = MARGIN_OLD
+                keyframe = self.pt_table.parallax_keyframe_decision(fc)
+                marg_flag = MARGIN_OLD if keyframe else MARGIN_SECOND_NEW
+                # a SECOND_NEW merge that would overflow IMU_PAD forces a keyframe
+                nw = self.cfg.window_size
+                if (marg_flag == MARGIN_SECOND_NEW and self.frame_count >= nw
+                        and len(self.imu_bufs[nw - 1].dt) + len(self.imu_bufs[nw].dt) > IMU_PAD):
+                    keyframe = True
+                    marg_flag = MARGIN_OLD
 
-        if oracle_state is not None and not self.initialized:
-            self.p[fc] = oracle_state["p"]
-            self.q[fc] = oracle_state["q"]
-            self.v[fc] = oracle_state["v"]
+                if oracle_state is not None and not self.initialized:
+                    self.p[fc] = oracle_state["p"]
+                    self.q[fc] = oracle_state["q"]
+                    self.v[fc] = oracle_state["v"]
 
-        long_tracked = (self.pt_table.mask[:, fc] > 0) & (np.sum(self.pt_table.mask, axis=1) >= 2)
-        m = {"t": t, "frame": fc, "keyframe": bool(keyframe),
-             "tracked": int(self.pt_table.active.sum()),
-             "long_tracked": int(long_tracked.sum())}
+                long_tracked = ((self.pt_table.mask[:, fc] > 0)
+                                & (np.sum(self.pt_table.mask, axis=1) >= 2))
+                m = {"t": t, "frame": fc, "keyframe": bool(keyframe),
+                     "tracked": int(self.pt_table.active.sum()),
+                     "long_tracked": int(long_tracked.sum())}
 
-        if self.frame_count < self.cfg.window_size:
-            self.frame_count += 1
-            self.imu_bufs.append(ImuBuffer())
-            self.pres.append(None)
-            self.p[self.frame_count] = self.p[self.frame_count - 1]
-            self.q[self.frame_count] = self.q[self.frame_count - 1]
-            self.v[self.frame_count] = self.v[self.frame_count - 1]
-            self.metrics.append(m)
-            return m
-
-        if not self.initialized:
-            if oracle_state is not None:
-                self.initialized = True
-                self.solves_since_init = 0
-            else:
-                from plslam_torch.models import initializer
-
-                if self.ex_calibrated and initializer.try_initialize(self):
-                    self.initialized = True
-                    self.solves_since_init = 0
-                else:
-                    self._slide_uninitialized()
+                if self.frame_count < self.cfg.window_size:
+                    self.frame_count += 1
+                    self.imu_bufs.append(ImuBuffer())
+                    self.pres.append(None)
+                    self.p[self.frame_count] = self.p[self.frame_count - 1]
+                    self.q[self.frame_count] = self.q[self.frame_count - 1]
+                    self.v[self.frame_count] = self.v[self.frame_count - 1]
                     self.metrics.append(m)
                     return m
 
-        bundle, prior, mode = self._dispatch_solve(marg_flag)
-        # the next interval's open buffer must exist at dispatch time so that
-        # samples arriving before finalize() land in the right interval
-        self.imu_bufs.append(ImuBuffer())
-        self.pres.append(None)
-        # record WHICH relo request (if any) the dispatched bundle solved: a
-        # set_relo_frame between dispatch and finalize stays pending
-        self._pending = dict(bundle=bundle, prior=prior, mode=mode, marg_flag=marg_flag, m=m,
-                             relo=self.relo)
-        if not defer_solve:
-            self.finalize()
-        return m
+            if not self.initialized:
+                if oracle_state is not None:
+                    self.initialized = True
+                    self.solves_since_init = 0
+                else:
+                    from plslam_torch.models import initializer
+
+                    with timers.span("estimator.initialize"):
+                        if self.ex_calibrated and initializer.try_initialize(self):
+                            self.initialized = True
+                            self.solves_since_init = 0
+                        else:
+                            self._slide_uninitialized()
+                            self.metrics.append(m)
+                            return m
+
+            timers.count("estimator.solve")
+            bundle, prior, mode = self._dispatch_solve(marg_flag)
+            # the next interval's open buffer must exist at dispatch time so that
+            # samples arriving before finalize() land in the right interval
+            self.imu_bufs.append(ImuBuffer())
+            self.pres.append(None)
+            # record WHICH relo request (if any) the dispatched bundle solved: a
+            # set_relo_frame between dispatch and finalize stays pending
+            self._pending = dict(bundle=bundle, prior=prior, mode=mode, marg_flag=marg_flag, m=m,
+                                 relo=self.relo)
+            if not defer_solve:
+                self.finalize()
+            return m
 
     def finalize(self):
         """Complete a deferred `process_frame`: read the solve bundle, apply
@@ -312,17 +319,23 @@ class Estimator:
             return
         pend, self._pending = self._pending, None
         m = pend["m"]
-        self._pending_prior = pend["prior"] if pend["mode"] != "none" else None
-        m.update(self._finish_solve(np.array(pend["bundle"].get()[0], np.float64), pend["relo"]))
-        self.solves_since_init += 1
-        if self._failure_detection(m):
-            m["failure"] = True
-            self.metrics.append(m)
-            self.clear_state()
-            return
-        self._slide(pend["marg_flag"])
-        self._replay_open_buffer()
-        self.metrics.append(m)
+        with timers.span("estimator.finalize", frame=m["t"]):
+            self._pending_prior = pend["prior"] if pend["mode"] != "none" else None
+            with timers.span("estimator.wait"):
+                b = np.array(pend["bundle"].get()[0], np.float64)
+            with timers.span("estimator.finish"):
+                m.update(self._finish_solve(b, pend["relo"]))
+            self.solves_since_init += 1
+            with timers.span("estimator.slide"):
+                if self._failure_detection(m):
+                    timers.count("estimator.failure")
+                    m["failure"] = True
+                    self.metrics.append(m)
+                    self.clear_state()
+                    return
+                self._slide(pend["marg_flag"])
+                self._replay_open_buffer()
+                self.metrics.append(m)
 
     # ------------------------------------------------- extrinsic calibration
     def _gyro_delta_q(self, fc: int):
@@ -474,22 +487,26 @@ class Estimator:
         """`solveOdometry()` + `optimization()` + outlier gating +
         marginalization, queued on the device with ONE packed readback.
         Returns (readback, prior_device, marg_mode)."""
-        st = self._device_state()
-        f = self._factors()
-        tbl, ltb = self.pt_table, self.ln_table
-        solvable = tbl.solvable()
-        tri_need = solvable & (tbl.inv_depth <= 0)
-        fb4 = np.sum(tbl.mask, axis=1) >= 4
-        ln_active2 = ltb.active & (np.sum(ltb.mask, axis=1) >= 2)
-        lneed = ln_active2 & ~ltb.solved
+        with timers.span("estimator.pack"):
+            st = self._device_state()
+            f = self._factors()
+            tbl, ltb = self.pt_table, self.ln_table
+            solvable = tbl.solvable()
+            tri_need = solvable & (tbl.inv_depth <= 0)
+            fb4 = np.sum(tbl.mask, axis=1) >= 4
+            ln_active2 = ltb.active & (np.sum(ltb.mask, axis=1) >= 2)
+            lneed = ln_active2 & ~ltb.solved
+            masks = [self._t(a.astype(np.float64))
+                     for a in (solvable, tri_need, fb4, lneed, ln_active2)]
         mode = "old" if marg_flag == MARGIN_OLD else ("new" if self.prior is not None else "none")
-        fmask = lambda a: self._t(a.astype(np.float64))  # noqa: E731
         kw = dict(ee=self.config.extrinsic.estimate_extrinsic > 0,
                   etd=self.config.temporal.estimate_td, iters=self.cfg.max_num_iterations)
-        st_out, stats, prior, aux = backend_tick(
-            st, f, fmask(solvable), fmask(tri_need), fmask(fb4), fmask(lneed), fmask(ln_active2),
-            self.lay, self.cfg, marg_mode=mode, graphs=self._graphs, **kw)
-        return HostCopy(pack_bundle(st_out, stats, aux)), prior, mode
+        with timers.span("estimator.launch"):
+            st_out, stats, prior, aux = backend_tick(
+                st, f, *masks, self.lay, self.cfg, marg_mode=mode, graphs=self._graphs, **kw)
+            with timers.span("backend.gating"):
+                bundle = HostCopy(pack_bundle(st_out, stats, aux))
+        return bundle, prior, mode
 
     def _finish_solve(self, b: np.ndarray, dispatched_relo=None) -> dict:
         tbl, ltb = self.pt_table, self.ln_table
@@ -655,49 +672,53 @@ def backend_tick(st, f, solvable, tri_need, fb4, lneed, ln_active2,
     pt_valid, ln_solved, pt_err, ln_err, p_w)."""
     lp = cfg.line_param
     # ---- FeatureManager::triangulate/triangulateLine at pre-solve poses ----
-    p_wc, q_wc = cam_poses(st)
-    inv_tri, ok = triangulate.triangulate_points(p_wc, q_wc, f.pt_obs, f.pt_mask, f.pt_start)
-    okf = ok.to(st.p.dtype)
-    commit = tri_need * okf
-    fallback = tri_need * (1.0 - okf) * fb4
-    inv0 = torch.where(commit > 0, inv_tri, st.inv_depth)
-    inv0 = torch.where(fallback > 0, torch.full_like(inv0, 1.0 / 5.0), inv0)  # INIT_DEPTH
-    L_tri, okl = triangulate.triangulate_lines(p_wc, q_wc, f.ln_obs, f.ln_mask, f.ln_start)
-    lcommit = lneed * okl.to(st.p.dtype)
-    line0 = torch.where(lcommit[:, None] > 0, L_tri, st.line)
-    # post-triangulation validity: previously solved | newly committed |
-    # INIT_DEPTH fallback (failed 2-3-obs triangulations never enter the solve)
-    pt_valid = solvable * torch.maximum(f.pt_valid, torch.maximum(commit, fallback))
-    ln_solved = ln_active2 * torch.maximum(f.ln_valid, lcommit)
-    st = st._replace(inv_depth=inv0, line=line0)
-    f = f._replace(pt_valid=pt_valid, ln_valid=ln_solved)
+    with timers.span("backend.triangulate"):
+        p_wc, q_wc = cam_poses(st)
+        inv_tri, ok = triangulate.triangulate_points(p_wc, q_wc, f.pt_obs, f.pt_mask, f.pt_start)
+        okf = ok.to(st.p.dtype)
+        commit = tri_need * okf
+        fallback = tri_need * (1.0 - okf) * fb4
+        inv0 = torch.where(commit > 0, inv_tri, st.inv_depth)
+        inv0 = torch.where(fallback > 0, torch.full_like(inv0, 1.0 / 5.0), inv0)  # INIT_DEPTH
+        L_tri, okl = triangulate.triangulate_lines(p_wc, q_wc, f.ln_obs, f.ln_mask, f.ln_start)
+        lcommit = lneed * okl.to(st.p.dtype)
+        line0 = torch.where(lcommit[:, None] > 0, L_tri, st.line)
+        # post-triangulation validity: previously solved | newly committed |
+        # INIT_DEPTH fallback (failed 2-3-obs triangulations never enter the solve)
+        pt_valid = solvable * torch.maximum(f.pt_valid, torch.maximum(commit, fallback))
+        ln_solved = ln_active2 * torch.maximum(f.ln_valid, lcommit)
+        st = st._replace(inv_depth=inv0, line=line0)
+        f = f._replace(pt_valid=pt_valid, ln_valid=ln_solved)
 
-    if lp != "world":
-        st = st._replace(line=res.lines_from_world(st, st.line, f.ln_start, lp))
-    st_out, stats = cuda_graph.run(
-        graphs, ("optimize_window", lay, cfg, ee, etd, iters),
-        lambda s, f_: solver_mod.optimize_window(s, f_, lay, cfg, estimate_extrinsic=ee,
-                                                 estimate_td=etd, num_iters=iters),
-        st, f)
-    if lp != "world":
-        st_out = st_out._replace(line=res.lines_to_world(st_out, f.ln_start, lp))
+    with timers.span("backend.lm"):
+        if lp != "world":
+            st = st._replace(line=res.lines_from_world(st, st.line, f.ln_start, lp))
+        st_out, stats = cuda_graph.run(
+            graphs, ("optimize_window", lay, cfg, ee, etd, iters),
+            lambda s, f_: solver_mod.optimize_window(s, f_, lay, cfg, estimate_extrinsic=ee,
+                                                     estimate_td=etd, num_iters=iters),
+            st, f)
+        if lp != "world":
+            st_out = st_out._replace(line=res.lines_to_world(st_out, f.ln_start, lp))
 
-    if marg_mode == "old":
-        prior = marg.marginalize_old(st_out, f, lay, cfg, groups=stats.groups, graphs=graphs)
-    elif marg_mode == "new":
-        prior = marg.marginalize_second_new(st_out, f, lay, cfg)
-    elif marg_mode == "none":
-        prior = None
-    else:
-        raise ValueError(f"unknown marg_mode {marg_mode!r}")
+    with timers.span("backend.marginalize"):
+        if marg_mode == "old":
+            prior = marg.marginalize_old(st_out, f, lay, cfg, groups=stats.groups, graphs=graphs)
+        elif marg_mode == "new":
+            prior = marg.marginalize_second_new(st_out, f, lay, cfg)
+        elif marg_mode == "none":
+            prior = None
+        else:
+            raise ValueError(f"unknown marg_mode {marg_mode!r}")
 
     # ---- removeOutlier / removeLineOutlier gating metrics ----
-    _, _, r_pt, r_ln, _ = stats.groups
-    err_px = torch.linalg.norm(r_pt, dim=-1) * 1.5  # whitened → pixels
-    pt_err = torch.amax(torch.where(f.pt_mask > 0, err_px, torch.zeros_like(err_px)), dim=1)
-    err_ln = torch.amax(torch.abs(r_ln), dim=-1) * 1.5
-    ln_err = torch.amax(torch.where(f.ln_mask > 0, err_ln, torch.zeros_like(err_ln)), dim=1)
-    p_w = res._world_points(st_out, f)
+    with timers.span("backend.gating"):
+        _, _, r_pt, r_ln, _ = stats.groups
+        err_px = torch.linalg.norm(r_pt, dim=-1) * 1.5  # whitened → pixels
+        pt_err = torch.amax(torch.where(f.pt_mask > 0, err_px, torch.zeros_like(err_px)), dim=1)
+        err_ln = torch.amax(torch.abs(r_ln), dim=-1) * 1.5
+        ln_err = torch.amax(torch.where(f.ln_mask > 0, err_ln, torch.zeros_like(err_ln)), dim=1)
+        p_w = res._world_points(st_out, f)
     aux = dict(commit=commit, lcommit=lcommit, pt_valid=pt_valid, ln_solved=ln_solved,
                pt_err=pt_err, ln_err=ln_err, p_w=p_w)
     return st_out, stats, prior, aux

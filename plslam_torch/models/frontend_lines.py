@@ -33,6 +33,7 @@ import torch.nn.functional as tnf
 from plslam_torch.models.frontend_points import build_pyramid
 from plslam_torch.ops.cameras import PinholeRadTan, cam_to, lift
 from plslam_torch.ops.kernels.hamming import hamming_matrix
+from plslam_torch.utils import timers
 from plslam_torch.utils.device import HostCopy, resolve_device
 
 TILE = 64
@@ -456,13 +457,14 @@ class FrontendLines:
         normalized segments [n,4]) with `want_output=True`, a `HostCopy`
         handle whose `get()` returns them with `want_output="defer"`, and
         None with `want_output=False`."""
-        img_d = torch.as_tensor(img).to(device=self.device, dtype=self.dtype)
-        oct1_d = None if oct1 is None else oct1.to(device=self.device, dtype=self.dtype)
-        if self.prev is None:
-            self.prev = self._initial_state()
-        self.prev, bundle = tick(self.cam, img_d, oct1_d, self.prev, self.max_lines,
-                                 self.octaves, self.binary_desc)
-        if not want_output:
-            return None
-        h = HostCopy(*bundle, unpack=unpack_bundle)
-        return h if want_output == "defer" else h.get()
+        with timers.span("lines.process"):
+            img_d = torch.as_tensor(img).to(device=self.device, dtype=self.dtype)
+            oct1_d = None if oct1 is None else oct1.to(device=self.device, dtype=self.dtype)
+            if self.prev is None:
+                self.prev = self._initial_state()
+            self.prev, bundle = tick(self.cam, img_d, oct1_d, self.prev, self.max_lines,
+                                     self.octaves, self.binary_desc)
+            if not want_output:
+                return None
+            h = HostCopy(*bundle, unpack=unpack_bundle)
+            return h if want_output == "defer" else h.get()

@@ -26,6 +26,7 @@ import torch
 from plslam_torch.ops.cameras import PinholeRadTan, cam_to, lift
 from plslam_torch.ops.kernels.lk import FORMULATIONS, lk_track
 from plslam_torch.ops.imu import cholesky
+from plslam_torch.utils import timers
 from plslam_torch.utils.device import HostCopy, resolve_device
 
 LK_LEVELS = 4  # cv::calcOpticalFlowPyrLK maxLevel=3 → 4 levels
@@ -378,27 +379,28 @@ class FrontendPoints:
         "defer", or None when `want_output` is False. `light=True`
         (tracked-only frames) runs pyramid + LK only. `gumbel` optionally
         fixes the RANSAC draws."""
-        img_d = self.upload(img)
-        kw = dict(fisheye=self.fisheye, fov_mask=self._mask_img)
-        if self.prev_pyr is None:
-            self.prev_pyr, self._state, bundle = det_prog(
-                self.cam, img_d, self.min_score, self.min_dist, self.max_cnt, **kw)
-        elif light and not want_output:
-            self.prev_pyr, self._state = tick_light(self.cam, self.prev_pyr, img_d, self._state,
-                                                    tracker=self.tracker, **kw)
+        with timers.span("points.process"):
+            img_d = self.upload(img)
+            kw = dict(fisheye=self.fisheye, fov_mask=self._mask_img)
+            if self.prev_pyr is None:
+                self.prev_pyr, self._state, bundle = det_prog(
+                    self.cam, img_d, self.min_score, self.min_dist, self.max_cnt, **kw)
+            elif light and not want_output:
+                self.prev_pyr, self._state = tick_light(self.cam, self.prev_pyr, img_d, self._state,
+                                                        tracker=self.tracker, **kw)
+                self.prev_t = t
+                return None
+            else:
+                dt = (t - self.prev_t) if self.prev_t is not None else 0.0
+                self.prev_pyr, self._state, bundle = tick(
+                    self.cam, self.prev_pyr, img_d, self._state, self.f_thresh, dt, self.min_score,
+                    self.min_dist, self.max_cnt, generator=self.generator, gumbel=gumbel,
+                    tracker=self.tracker, **kw)
             self.prev_t = t
-            return None
-        else:
-            dt = (t - self.prev_t) if self.prev_t is not None else 0.0
-            self.prev_pyr, self._state, bundle = tick(
-                self.cam, self.prev_pyr, img_d, self._state, self.f_thresh, dt, self.min_score,
-                self.min_dist, self.max_cnt, generator=self.generator, gumbel=gumbel,
-                tracker=self.tracker, **kw)
-        self.prev_t = t
-        if not want_output:
-            return None
-        h = HostCopy(*bundle, unpack=self._unpack)
-        return h if want_output == "defer" else h.get()
+            if not want_output:
+                return None
+            h = HostCopy(*bundle, unpack=self._unpack)
+            return h if want_output == "defer" else h.get()
 
     def _unpack(self, bundle: np.ndarray, ids: np.ndarray):
         b = bundle.astype(np.float64)

@@ -18,6 +18,7 @@ from plslam_torch.models import solver as solver_mod
 from plslam_torch.models import triangulate
 from plslam_torch.models.state import zero_state
 from plslam_torch.utils import quat_np as qnp
+from plslam_torch.utils import timers
 from plslam_torch.utils.device import astensor
 from plslam_torch.utils.geometry import gravity_to_rot
 
@@ -186,6 +187,7 @@ def _sfm(est, l, R_nl, t_nl):
     ok_ref = ok3 & used_t
 
     h = lambda x: x.cpu().numpy()  # noqa: E731
+    timers.count("host_wait", 9)  # the cost and the eight arrays below
     mean_err = float(stats.cost) / max(1.0, float(np.sum(tbl.mask)))
     cands = [(h(st_ref.p), h(st_ref.q), h(st_ref.inv_depth), h(ok_ref)),
              (h(st_boot.p), h(st_boot.q), h(st_boot.inv_depth), h(ok_boot))]
@@ -196,6 +198,7 @@ def _pres_host(est):
     """All interval preintegrations as host dicts (index k = 1..nw like
     `est.pres`; None for empty intervals), in one stacked readback."""
     stk, valid = est.window_pres()
+    timers.count("host_wait", len(stk))
     stk_h = {k: v.cpu().numpy().astype(np.float64) for k, v in stk.items()}
     return [None] + [{k: stk_h[k][i] for k in stk_h} if ok else None
                      for i, ok in enumerate(valid)]

@@ -24,6 +24,7 @@ import torch
 
 from plslam_torch.models.frontend_points import _bilinear, _sep_conv, shi_tomasi_grid
 from plslam_torch.ops.kernels import hamming as hamming_ops
+from plslam_torch.utils import timers
 
 N_BRIEF_BITS = 256
 N_BRIEF_WORDS = N_BRIEF_BITS // 32
@@ -52,7 +53,9 @@ def desc_tensor(words, device=None) -> torch.Tensor:
 
 
 def desc_words(t: torch.Tensor) -> np.ndarray:
-    """The inverse of `desc_tensor`: int32 tensor → host uint32 words."""
+    """The inverse of `desc_tensor`: int32 tensor → host uint32 words (a
+    `host_wait` of the tracer)."""
+    timers.count("host_wait")
     return t.detach().cpu().numpy().astype(np.int32).view(np.uint32)
 
 
@@ -122,6 +125,7 @@ def extract_keyframe_features(img, extra_uv=None):
         valid = torch.cat([torch.as_tensor(vbuf, dtype=dt, device=dev), valid[: MAX_KP - nmax]])
     desc, bits = brief_descriptors(img, uv, valid)
     gdesc = global_descriptor(bits, valid)
+    timers.count("host_wait", 3)  # uv, valid and gdesc; desc_words counts its own
     return (uv.cpu().numpy(), valid.cpu().numpy() > 0, desc_words(desc),
             gdesc.cpu().numpy())
 

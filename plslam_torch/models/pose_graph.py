@@ -30,6 +30,7 @@ from plslam_torch.models import keyframe_db as kdb
 from plslam_torch.ops import cameras
 from plslam_torch.ops.imu import cholesky
 from plslam_torch.utils import quat_np as qnp
+from plslam_torch.utils import timers
 from plslam_torch.utils.device import resolve_device
 from plslam_torch.utils.geometry import ypr_to_rot
 
@@ -331,68 +332,75 @@ class PoseGraph:
         without one, no loop detection. win_uv/win_pts3d/win_ids: the
         estimator's window points at this keyframe (pixels, world 3D, global
         feature ids). Returns the accepted loop edge or None."""
-        t0 = time.perf_counter()
-        if self.n >= self.cfg.max_keyframes and not self._evict_for_capacity():
-            return None
-        k = self.n
-        self.vio_p[k] = p_w
-        self.vio_q[k] = q_w
-        ypr = qnp.rot_to_ypr(qnp.quat_to_rot(np.asarray(q_w, np.float64)))
-        self.vio_yaw[k] = ypr[0]
-        self.pitch[k] = ypr[1]
-        self.roll[k] = ypr[2]
-        # new nodes enter in the drift-corrected frame of their optimized predecessors
-        self.opt_yaw[k] = ypr[0] + self.yaw_drift
-        self.opt_p[k] = self.r_drift @ np.asarray(p_w, np.float64) + self.t_drift
-        self.t_kf[k] = t
-        self.n += 1
-        self.edges.extend(self._seq_edges(k))
+        with timers.span("pose_graph.add_keyframe"):
+            t0 = time.perf_counter()
+            if self.n >= self.cfg.max_keyframes and not self._evict_for_capacity():
+                return None
+            k = self.n
+            self.vio_p[k] = p_w
+            self.vio_q[k] = q_w
+            ypr = qnp.rot_to_ypr(qnp.quat_to_rot(np.asarray(q_w, np.float64)))
+            self.vio_yaw[k] = ypr[0]
+            self.pitch[k] = ypr[1]
+            self.roll[k] = ypr[2]
+            # new nodes enter in the drift-corrected frame of their optimized predecessors
+            self.opt_yaw[k] = ypr[0] + self.yaw_drift
+            self.opt_p[k] = self.r_drift @ np.asarray(p_w, np.float64) + self.t_drift
+            self.t_kf[k] = t
+            self.n += 1
+            self.edges.extend(self._seq_edges(k))
 
-        loop = None
-        self.last_match = None
-        if img is not None:
-            tf = time.perf_counter()
-            img_t = torch.as_tensor(img, dtype=torch.float32).to(self.device)
-            # the window-point payload is capped at the BRIEF slot budget
-            nmax = kdb.MAX_KP // 2
-            if win_uv is not None and len(win_uv) > nmax:
-                win_uv = win_uv[:nmax]
-                win_ids = win_ids[:nmax] if win_ids is not None else None
-                win_pts3d = win_pts3d[:nmax] if win_pts3d is not None else None
-            uv, valid, desc, gdesc = kdb.extract_keyframe_features(img_t, extra_uv=win_uv)
-            win_desc = None
-            if win_uv is not None and len(win_uv):  # `computeWindowBRIEFPoint`
-                cnt = len(win_uv)
-                buf = np.zeros((nmax, 2), np.float32)
-                buf[:cnt] = np.asarray(win_uv, np.float32)
-                wv = np.zeros((nmax,), np.float32)
-                wv[:cnt] = 1.0
-                wd, _ = kdb.brief_descriptors(img_t, torch.as_tensor(buf, device=self.device),
-                                              torch.as_tensor(wv, device=self.device))
-                win_desc = kdb.desc_words(wd)[:cnt]
-            self.times["features"].append(1e3 * (time.perf_counter() - tf))
-            entry = dict(uv=uv, valid=valid, desc=desc, cam=cam,
-                         win_uv=win_uv, win_ids=win_ids, win_pts3d=win_pts3d,
-                         win_desc=win_desc, img_shape=tuple(img_t.shape),
-                         img=(np.asarray(img.cpu() if torch.is_tensor(img) else img, np.float32)
-                              if self.keep_images else None))
-            old = self.db.query(gdesc, exclude_last=self.cfg.min_loop_gap,
-                                min_score=self.cfg.loop_min_score, always_include=self.base_n,
-                                consistency=self.cfg.loop_consistency,
-                                consistency_gap=self.cfg.consistency_gap)
-            self.db.add(entry, gdesc)
-            if old is not None:
-                # geometric disambiguation over the strong candidates, oldest first
-                for cand in (self.db.last_candidates or [old]):
-                    loop = self._find_connection(cand, k, entry)
+            loop = None
+            self.last_match = None
+            if img is not None:
+                with timers.span("pose_graph.features"):
+                    tf = time.perf_counter()
+                    img_t = torch.as_tensor(img, dtype=torch.float32).to(self.device)
+                    # the window-point payload is capped at the BRIEF slot budget
+                    nmax = kdb.MAX_KP // 2
+                    if win_uv is not None and len(win_uv) > nmax:
+                        win_uv = win_uv[:nmax]
+                        win_ids = win_ids[:nmax] if win_ids is not None else None
+                        win_pts3d = win_pts3d[:nmax] if win_pts3d is not None else None
+                    uv, valid, desc, gdesc = kdb.extract_keyframe_features(img_t,
+                                                                           extra_uv=win_uv)
+                    win_desc = None
+                    if win_uv is not None and len(win_uv):  # `computeWindowBRIEFPoint`
+                        cnt = len(win_uv)
+                        buf = np.zeros((nmax, 2), np.float32)
+                        buf[:cnt] = np.asarray(win_uv, np.float32)
+                        wv = np.zeros((nmax,), np.float32)
+                        wv[:cnt] = 1.0
+                        wd, _ = kdb.brief_descriptors(img_t,
+                                                      torch.as_tensor(buf, device=self.device),
+                                                      torch.as_tensor(wv, device=self.device))
+                        win_desc = kdb.desc_words(wd)[:cnt]
+                    self.times["features"].append(1e3 * (time.perf_counter() - tf))
+                    entry = dict(uv=uv, valid=valid, desc=desc, cam=cam,
+                                 win_uv=win_uv, win_ids=win_ids, win_pts3d=win_pts3d,
+                                 win_desc=win_desc, img_shape=tuple(img_t.shape),
+                                 img=(np.asarray(img.cpu() if torch.is_tensor(img) else img,
+                                                 np.float32) if self.keep_images else None))
+                with timers.span("pose_graph.query"):
+                    old = self.db.query(gdesc, exclude_last=self.cfg.min_loop_gap,
+                                        min_score=self.cfg.loop_min_score,
+                                        always_include=self.base_n,
+                                        consistency=self.cfg.loop_consistency,
+                                        consistency_gap=self.cfg.consistency_gap)
+                    self.db.add(entry, gdesc)
+                if old is not None:
+                    # geometric disambiguation over the strong candidates, oldest first
+                    for cand in (self.db.last_candidates or [old]):
+                        loop = self._find_connection(cand, k, entry)
+                        if loop is not None:
+                            break
                     if loop is not None:
-                        break
-                if loop is not None:
-                    self.edges.append(loop)
-                    self.loop_count += 1
-                    self._pending_opt = True
-        self.times["add_keyframe"].append(1e3 * (time.perf_counter() - t0))
-        return loop
+                        timers.count("pose_graph.loop")
+                        self.edges.append(loop)
+                        self.loop_count += 1
+                        self._pending_opt = True
+            self.times["add_keyframe"].append(1e3 * (time.perf_counter() - t0))
+            return loop
 
     def _evict_for_capacity(self) -> bool:
         """At capacity, evict every other OLD keyframe that is not in the
@@ -455,6 +463,11 @@ class PoseGraph:
         3D ↔ old normalized 2D) recovers the old keyframe's pose in the
         current world → a loop edge, and `last_match` for the estimator's
         relocalization."""
+        with timers.span("pose_graph.connect"):
+            timers.count("pose_graph.candidate")
+            return self._connect(old_idx, cur_idx, cur_entry)
+
+    def _connect(self, old_idx, cur_idx, cur_entry):
         t0 = time.perf_counter()
         pnp_ms = None  # stays None for candidates that never reach PnP
         old = self.db.entries[old_idx]
@@ -468,27 +481,31 @@ class PoseGraph:
             if cam is None or old.get("desc") is None:
                 rec["outcome"] = "no_descriptors"
                 return None
-            dist = kdb.hamming_matrix(self._desc_on_device(cur_entry, "win_desc"),
-                                      self._desc_on_device(old, "desc")).cpu().numpy()
-            dist[:, ~np.asarray(old["valid"], bool)] = 999
-            best = dist.argmin(axis=1)
-            bestd = dist.min(axis=1)
-            good = bestd < self.cfg.desc_hamming_thresh
-            rec["matches"] = int(good.sum())
-            if good.sum() < 8:
-                rec["outcome"] = "few_matches"
-                return None
-            pts3d = np.asarray(cur_entry["win_pts3d"])[good]
-            uv_old = np.asarray(old["uv"])[best[good]]
-            cam_dev = cam[0].device
-            norm_old = cameras.lift(cam, torch.as_tensor(uv_old, dtype=torch.float32,
-                                                         device=cam_dev)).cpu().numpy()
-            norm_old = norm_old.astype(np.float64)
+            with timers.span("pose_graph.search"):
+                timers.count("host_wait")  # the distances
+                dist = kdb.hamming_matrix(self._desc_on_device(cur_entry, "win_desc"),
+                                          self._desc_on_device(old, "desc")).cpu().numpy()
+                dist[:, ~np.asarray(old["valid"], bool)] = 999
+                best = dist.argmin(axis=1)
+                bestd = dist.min(axis=1)
+                good = bestd < self.cfg.desc_hamming_thresh
+                rec["matches"] = int(good.sum())
+                if good.sum() < 8:
+                    rec["outcome"] = "few_matches"
+                    return None
+                pts3d = np.asarray(cur_entry["win_pts3d"])[good]
+                uv_old = np.asarray(old["uv"])[best[good]]
+                cam_dev = cam[0].device
+                timers.count("host_wait")  # the lifted points
+                norm_old = cameras.lift(cam, torch.as_tensor(uv_old, dtype=torch.float32,
+                                                             device=cam_dev)).cpu().numpy()
+                norm_old = norm_old.astype(np.float64)
             # reprojection gate = 10 px in this camera, in normalized units
             fx = float(cam.fx)
             tp = time.perf_counter()
-            out = kdb.pnp_ransac(pts3d, norm_old, thresh=10.0 / fx,
-                                 min_inliers=self.cfg.min_pnp_inliers, return_best=True)
+            with timers.span("pose_graph.pnp"):
+                out = kdb.pnp_ransac(pts3d, norm_old, thresh=10.0 / fx,
+                                     min_inliers=self.cfg.min_pnp_inliers, return_best=True)
             pnp_ms = 1e3 * (time.perf_counter() - tp)
             if out is None:
                 rec["outcome"] = "pnp_failed"
@@ -610,22 +627,27 @@ class PoseGraph:
         node slots the PCG solver runs instead."""
         if self.n < 2 or not self.edges:
             return
-        t0 = time.perf_counter()
-        K = min(self.cfg.max_keyframes, max(64, _pow2_at_least(self.n)))
-        Ep = _pow2_at_least(len(self.edges))
-        args = self.pgo_inputs(K, Ep)
-        solve = optimize_4dof if K < _PCG_THRESHOLD else optimize_4dof_pcg
-        xyz, yaw, _ = solve(*args, iters=iters)
-        self.opt_p[: self.n] = xyz.cpu().numpy()[: self.n]
-        self.opt_yaw[: self.n] = yaw.cpu().numpy()[: self.n]
-        # drift: the last keyframe optimized vs VIO
-        k = self.n - 1
-        self.yaw_drift = self.opt_yaw[k] - self.vio_yaw[k]
-        Rz = _rot_ypr_np(self.yaw_drift)
-        self.r_drift = Rz
-        self.t_drift = self.opt_p[k] - Rz @ self.vio_p[k]
-        self._pending_opt = False
-        self.times["optimize"].append((K, len(self.edges), 1e3 * (time.perf_counter() - t0)))
+        with timers.span("pose_graph.optimize"):
+            t0 = time.perf_counter()
+            with timers.span("pose_graph.pgo_pack"):
+                K = min(self.cfg.max_keyframes, max(64, _pow2_at_least(self.n)))
+                Ep = _pow2_at_least(len(self.edges))
+                args = self.pgo_inputs(K, Ep)
+            with timers.span("pose_graph.pgo_solve"):
+                solve = optimize_4dof if K < _PCG_THRESHOLD else optimize_4dof_pcg
+                xyz, yaw, _ = solve(*args, iters=iters)
+            with timers.span("pose_graph.pgo_wait"):
+                timers.count("host_wait", 2)  # positions and yaws
+                self.opt_p[: self.n] = xyz.cpu().numpy()[: self.n]
+                self.opt_yaw[: self.n] = yaw.cpu().numpy()[: self.n]
+            # drift: the last keyframe optimized vs VIO
+            k = self.n - 1
+            self.yaw_drift = self.opt_yaw[k] - self.vio_yaw[k]
+            Rz = _rot_ypr_np(self.yaw_drift)
+            self.r_drift = Rz
+            self.t_drift = self.opt_p[k] - Rz @ self.vio_p[k]
+            self._pending_opt = False
+            self.times["optimize"].append((K, len(self.edges), 1e3 * (time.perf_counter() - t0)))
 
     def correct(self, p_vio, q_vio):
         """Apply the current drift to a live VIO pose (`updatePath` output)."""

@@ -16,6 +16,7 @@ import torch
 
 from plslam_torch.config import ExtrinsicConfig, PLSlamConfig
 from plslam_torch.models.estimator import Estimator
+from plslam_torch.utils import timers
 from plslam_torch.utils.device import HostCopy
 
 
@@ -190,8 +191,9 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
     max_pub = max_frames if max_frames is not None else len(seq.cam_t)
 
     def _load(k):
-        img = seq.image(k)
-        return _clahe(img) if tr.equalize else img
+        with timers.span("runner.decode", frame=float(seq.cam_t[k])):
+            img = seq.image(k)
+            return _clahe(img) if tr.equalize else img
 
     executor = pending = None
     if pipeline:
@@ -210,49 +212,51 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
         frame's own image (one published frame later in pipeline mode —
         `latest_pose()` finalizes the deferred solve)."""
         m, img_k = ctx
-        est.finalize()
-        # the relocalization round trip closes (`updateKeyFrameLoop`): the
-        # joint solve's refined old-keyframe pose replaces the raw PnP edge
-        if pgraph is not None and est.relo_result is not None and relo_edge["ij"] is not None:
-            oi, cj = relo_edge["ij"]
-            pgraph.update_loop_edge(oi, cj, est.relo_result["p_old"], est.relo_result["q_old"])
-            relo_edge["ij"] = None
-            est.relo_result = None
-        elif relo_edge["ij"] is not None and est.relo is None and est.relo_result is None:
-            # the round trip died (failure detection cleared the estimator):
-            # the raw PnP measurement stands
-            relo_edge["ij"] = None
-        if "cost" not in m or m.get("failure") or not est.initialized:
-            return
-        tt, p, q = est.latest_pose()
-        if pgraph is not None and m.get("keyframe"):
-            ids_w, norm_w, pts3d_w = est.window_points()
-            uv_w = None
-            if len(ids_w):
-                # a fixed max_features buffer, as the JAX runner projects it
-                buf = np.zeros((config.solver.max_features, 2))
-                buf[: len(ids_w)] = norm_w
-                uv_all = normalized_to_pixel(cam, torch.as_tensor(buf, dtype=torch.float32))
-                uv_w = uv_all.numpy().astype(np.float64)[: len(ids_w)]
-            loop = pgraph.add_keyframe(tt, p, q, img=img_k, cam=cam, win_uv=uv_w,
-                                       win_pts3d=pts3d_w, win_ids=ids_w)
-            mm = pgraph.last_match
-            if loop is not None and mm is not None:
-                # relocalization feedback (`setReloFrame`): the next solve
-                # refines the loop jointly
-                _set_relo(mm)
-                if viz is not None and mm["old_img"] is not None and mm["uv_cur"] is not None:
-                    viz.match_image(img_k, mm["uv_cur"], mm["old_img"], mm["uv_old"],
-                                    tag=f"{mm['old_idx']}_{mm['cur_idx']}")
-            if loop is not None and config.loop.fast_relocalization and loop["i"] < pgraph.base_n:
-                pgraph.fast_relocalize(loop)  # the edge lands in the loaded map
-        if pgraph is not None:
-            if pgraph._pending_opt:
-                pgraph.optimize()
-            p, q = pgraph.correct(p, q)  # every published pose, not only keyframes
-        ts_out.append(tt)
-        ps_out.append(p)
-        qs_out.append(q)
+        with timers.span("runner.emit", frame=m["t"]):
+            est.finalize()
+            # the relocalization round trip closes (`updateKeyFrameLoop`): the
+            # joint solve's refined old-keyframe pose replaces the raw PnP edge
+            if pgraph is not None and est.relo_result is not None and relo_edge["ij"] is not None:
+                oi, cj = relo_edge["ij"]
+                pgraph.update_loop_edge(oi, cj, est.relo_result["p_old"], est.relo_result["q_old"])
+                relo_edge["ij"] = None
+                est.relo_result = None
+            elif relo_edge["ij"] is not None and est.relo is None and est.relo_result is None:
+                # the round trip died (failure detection cleared the estimator):
+                # the raw PnP measurement stands
+                relo_edge["ij"] = None
+            if "cost" not in m or m.get("failure") or not est.initialized:
+                return
+            tt, p, q = est.latest_pose()
+            if pgraph is not None and m.get("keyframe"):
+                ids_w, norm_w, pts3d_w = est.window_points()
+                uv_w = None
+                if len(ids_w):
+                    # a fixed max_features buffer, as the JAX runner projects it
+                    buf = np.zeros((config.solver.max_features, 2))
+                    buf[: len(ids_w)] = norm_w
+                    uv_all = normalized_to_pixel(cam, torch.as_tensor(buf, dtype=torch.float32))
+                    uv_w = uv_all.numpy().astype(np.float64)[: len(ids_w)]
+                loop = pgraph.add_keyframe(tt, p, q, img=img_k, cam=cam, win_uv=uv_w,
+                                           win_pts3d=pts3d_w, win_ids=ids_w)
+                mm = pgraph.last_match
+                if loop is not None and mm is not None:
+                    # relocalization feedback (`setReloFrame`): the next solve
+                    # refines the loop jointly
+                    _set_relo(mm)
+                    if viz is not None and mm["old_img"] is not None and mm["uv_cur"] is not None:
+                        viz.match_image(img_k, mm["uv_cur"], mm["old_img"], mm["uv_old"],
+                                        tag=f"{mm['old_idx']}_{mm['cur_idx']}")
+                if (loop is not None and config.loop.fast_relocalization
+                        and loop["i"] < pgraph.base_n):
+                    pgraph.fast_relocalize(loop)  # the edge lands in the loaded map
+            if pgraph is not None:
+                if pgraph._pending_opt:
+                    pgraph.optimize()
+                p, q = pgraph.correct(p, q)  # every published pose, not only keyframes
+            ts_out.append(tt)
+            ps_out.append(p)
+            qs_out.append(q)
 
     def _set_relo(mm):
         if est.set_relo_frame(mm["ids"], mm["obs_old"], mm["p_old"], mm["q_old"]):
@@ -301,8 +305,10 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
                 if f_lines is not None:
                     f_lines.reset()
             prev_cam_t = t
+            timers.frame(t)
             if executor is not None:
-                img = pending.result()
+                with timers.span("runner.load_wait"):
+                    img = pending.result()
                 if k + 1 < n_cam:
                     pending = executor.submit(_load, k + 1)
             else:
@@ -324,11 +330,12 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
                 viz.track_frame(img, uv, fp.track_cnt[fp.prev_valid])
             if not publish:
                 continue
-            if ln_h is not None:
-                (ids, pts, vel, _), (ln_ids, ln_segs) = HostCopy.get_joint(pts_h, ln_h)
-            else:
-                ids, pts, vel, _ = pts_h.get()
-                ln_ids = ln_segs = None
+            with timers.span("runner.frontend_wait"):
+                if ln_h is not None:
+                    (ids, pts, vel, _), (ln_ids, ln_segs) = HostCopy.get_joint(pts_h, ln_h)
+                else:
+                    ids, pts, vel, _ = pts_h.get()
+                    ln_ids = ln_segs = None
             n_pub += 1
             if record_tracks is not None and len(ids):
                 # the published tracks keyed by time: global ids and normalized
@@ -337,7 +344,8 @@ def run_euroc(seq_path: str, config: PLSlamConfig | None = None, use_lines: bool
             if deferred is not None:
                 _emit(deferred)
                 deferred = None
-            feeder.feed_until(est, t)
+            with timers.span("runner.imu"):
+                feeder.feed_until(est, t)
             m = est.process_frame(t, ids, pts, vel, ln_ids, ln_segs, defer_solve=pipeline)
             if pipeline:
                 deferred = (m, img)
@@ -384,7 +392,10 @@ def _burst_tail(seq, config, est, fp, f_lines, feeder, k0, stride, B, load, ts_o
     the updated published count, a loop match wanting the relocalization
     round trip or None). Stops early on a timestamp jump, failure detection
     or such a loop, and runs nothing with less than a chunk left: streaming
-    handles each. Every chunk and every fallback lands in `burst_log`."""
+    handles each. Every chunk and every fallback lands in `burst_log`; a
+    chunk's entry counts the published frames it emitted (`frames`) and
+    those it did not (`dropped`: the frames from the one that failure
+    detection flagged to the chunk's end, 0 for a whole chunk)."""
     import time
     from concurrent.futures import ThreadPoolExecutor
 
@@ -491,8 +502,8 @@ def _burst_tail(seq, config, est, fp, f_lines, feeder, k0, stride, B, load, ts_o
                                     "n_pts": int(o["n_pts"][j]), "burst": True})
                 n_pub += 1
                 emitted += 1
-            note(k=k, frames=emitted, decode_wait_s=t_dec - t0, chunk_s=t_read - t_dec,
-                 t0=t0, t1=t_read)
+            note(k=k, frames=emitted, dropped=B - emitted, decode_wait_s=t_dec - t0,
+                 chunk_s=t_read - t_dec, t0=t0, t1=t_read)
             td = float(o["td"][-1])  # estimate_td: the next chunk pairs at the live td
             prev_t = float(tchunk[-1])
             k += B * stride

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
+from plslam_torch.utils import timers
+
 
 class CudaGraph:
     """`fn(*args)` over (nested tuples / NamedTuples of) CUDA tensors, recorded
@@ -53,9 +55,12 @@ def run(graphs: dict | None, key: tuple, fn, *args):
     """`fn(*args)`; through the CUDA graph `graphs[key]` (recorded at the
     first call) when a dict of graphs is given. `key` must hold every
     setting that `fn` closes over, so that other settings record another
-    graph instead of replaying a stale one."""
+    graph instead of replaying a stale one. A recording is the tracer's
+    `graph.capture` span and counter."""
     if graphs is None:
         return fn(*args)
     if key not in graphs:
-        graphs[key] = CudaGraph(fn, *args)
+        timers.count("graph.capture")
+        with timers.span("graph.capture"):
+            graphs[key] = CudaGraph(fn, *args)
     return graphs[key](*args)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from plslam_torch.utils import timers
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 if torch.cuda.is_available():
@@ -40,7 +42,8 @@ class HostCopy:
     memory without blocking, on the current stream, and one event marks the
     end of them all; `get()` waits for that event and returns
     `unpack(*arrays)` (the numpy arrays themselves without `unpack`). CPU
-    tensors are taken as they are."""
+    tensors are taken as they are. Each `get()` and `get_joint()` counts one
+    `host_wait` in the tracer."""
 
     def __init__(self, *tensors: torch.Tensor, unpack=None):
         self._unpack = unpack
@@ -55,8 +58,12 @@ class HostCopy:
             self._host = list(tensors)
 
     def get(self):
+        timers.count("host_wait")
         if self._event is not None:
             self._event.synchronize()
+        return self._arrays()
+
+    def _arrays(self):
         arrays = [h.numpy() for h in self._host]
         return self._unpack(*arrays) if self._unpack is not None else arrays
 
@@ -64,9 +71,10 @@ class HostCopy:
     def get_joint(*handles: "HostCopy") -> list:
         """`get()` of several handles made in this order on one stream, with
         one wait: the last handle's event follows every earlier copy."""
+        timers.count("host_wait")
         if handles[-1]._event is not None:
             handles[-1]._event.synchronize()
-        return [h.get() for h in handles]
+        return [h._arrays() for h in handles]
 
 
 def resolve_device(device) -> torch.device:

@@ -19,9 +19,11 @@ picks (the JAX scan picks the branch on the device with `lax.cond`;
 computing both branches and selecting with `torch.where`, built and
 measured on an H100, was slower: PERF.md, §6), and the library's own error
 checks wait for the device, `torch.linalg.svd` (triangulation, two a step)
-and `torch.linalg.eigh` (marginalization, two or three a step) checking
-their `info` on the host. Apart from those, a step reads nothing back: no
-`.item()`, no shape that depends on data, no tensor made from host data.
+checking its `info` on the host. The marginalization's eigendecompositions
+(two or three a step) leave theirs on the card, as a flag among the step's
+outputs (`eigh_failed`) that the chunk's readback checks. Apart from those,
+a step reads nothing back: no `.item()`, no shape that depends on data, no
+tensor made from host data.
 
 The step's bodies are the streaming ones (`frontend_points.tick` /
 `tick_light`, `frontend_lines.tick`, `estimator.backend_tick`) and the
@@ -262,7 +264,7 @@ class BurstStep:
     device)."""
 
     OUTPUTS = ("p", "q", "keyframe", "cost", "fail", "long_tracked", "n_pts", "td", "ids",
-               "kf_points", "uv", "p_w")
+               "kf_points", "uv", "p_w", "eigh_failed")
 
     def __init__(self, est, fp, fl, stride: int):
         self.est, self.fp, self.fl = est, fp, fl
@@ -421,7 +423,8 @@ class BurstStep:
         kf_pts = ptv & ~drop & (ptab.mask[:, W] > 0) & (ptab.ids >= 0)
         uv = normalized_to_pixel(self.fp.cam, ptab.obs[:, W].to(self.fp.dtype))
         out = (st_out.p[W], st_out.q[W], kf, stats.cost, fail, long_tracked,
-               torch.sum(aux["pt_valid"]), st_out.td, ptab.ids, kf_pts, uv, aux["p_w"])
+               torch.sum(aux["pt_valid"]), st_out.td, ptab.ids, kf_pts, uv, aux["p_w"],
+               aux["eigh_failed"])
         return out_carry, out
 
     def _slide_old(self, st_out, ptab, ltab, imu_f, td_pair, raw):

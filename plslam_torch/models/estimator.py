@@ -509,6 +509,8 @@ class Estimator:
         return bundle, prior, mode
 
     def _finish_solve(self, b: np.ndarray, dispatched_relo=None) -> dict:
+        if b[-1] > 0:  # the flag that `backend_tick` left on the card
+            raise torch.linalg.LinAlgError(marg.EIGH_FAILED)
         tbl, ltb = self.pt_table, self.ln_table
         nw, MF, ML = self.cfg.window_size, self.cfg.max_features, self.cfg.max_line_feats
         NW = nw + 1
@@ -669,7 +671,9 @@ def backend_tick(st, f, solvable, tri_need, fb4, lneed, ln_active2,
     are recorded at the first call of each setting (layout, config, ee, etd,
     iters).
     Returns (st_out, stats, prior, aux) with aux = dict(commit, lcommit,
-    pt_valid, ln_solved, pt_err, ln_err, p_w)."""
+    pt_valid, ln_solved, pt_err, ln_err, p_w, eigh_failed); `eigh_failed` is
+    [] 1 where a marginalization eigendecomposition failed on the card, left
+    there for the caller's readback (0 on the CPU, where it raises)."""
     lp = cfg.line_param
     # ---- FeatureManager::triangulate/triangulateLine at pre-solve poses ----
     with timers.span("backend.triangulate"):
@@ -702,14 +706,17 @@ def backend_tick(st, f, solvable, tri_need, fb4, lneed, ln_active2,
             st_out = st_out._replace(line=res.lines_to_world(st_out, f.ln_start, lp))
 
     with timers.span("backend.marginalize"):
+        infos = []
         if marg_mode == "old":
-            prior = marg.marginalize_old(st_out, f, lay, cfg, groups=stats.groups, graphs=graphs)
+            prior = marg.marginalize_old(st_out, f, lay, cfg, groups=stats.groups, graphs=graphs,
+                                         infos=infos)
         elif marg_mode == "new":
-            prior = marg.marginalize_second_new(st_out, f, lay, cfg)
+            prior = marg.marginalize_second_new(st_out, f, lay, cfg, infos=infos)
         elif marg_mode == "none":
             prior = None
         else:
             raise ValueError(f"unknown marg_mode {marg_mode!r}")
+        eigh_failed = marg.eigh_failed(infos, st_out.p)
 
     # ---- removeOutlier / removeLineOutlier gating metrics ----
     with timers.span("backend.gating"):
@@ -720,12 +727,13 @@ def backend_tick(st, f, solvable, tri_need, fb4, lneed, ln_active2,
         ln_err = torch.amax(torch.where(f.ln_mask > 0, err_ln, torch.zeros_like(err_ln)), dim=1)
         p_w = res._world_points(st_out, f)
     aux = dict(commit=commit, lcommit=lcommit, pt_valid=pt_valid, ln_solved=ln_solved,
-               pt_err=pt_err, ln_err=ln_err, p_w=p_w)
+               pt_err=pt_err, ln_err=ln_err, p_w=p_w, eigh_failed=eigh_failed)
     return st_out, stats, prior, aux
 
 
 def pack_bundle(st_out: WindowState, stats, aux) -> torch.Tensor:
-    """Everything the host needs after a solve, as ONE flat tensor."""
+    """Everything the host needs after a solve, as ONE flat tensor; the
+    marginalization's eigh flag last."""
     dtype = st_out.p.dtype
     return torch.cat([
         st_out.p.reshape(-1), st_out.q.reshape(-1), st_out.v.reshape(-1),
@@ -737,4 +745,5 @@ def pack_bundle(st_out: WindowState, stats, aux) -> torch.Tensor:
         aux["pt_err"], aux["ln_err"], aux["p_w"].reshape(-1),
         torch.stack([stats.cost0, stats.cost, stats.cost_robust0, stats.cost_robust,
                      stats.accepted.to(dtype)]),
+        aux["eigh_failed"].reshape(1),
     ])

@@ -7,6 +7,14 @@ pose+speedbias dims with an eigh pseudo-inverse, re-factor the kept system
 H' = J₀ᵀJ₀ and re-index it by the window shift. Every eigendecomposition runs
 on the Jacobi-scaled (unit-diagonal) system so the eigenvalue floor is
 relative and float32 survives.
+
+On the card the eigendecompositions are queued without a host wait
+(`ops/kernels/eigh.py`): each one's `info` stays on the device, in the list
+`infos` that the caller passes, and `eigh_failed` folds them into one flag
+for the caller's own readback (`estimator.backend_tick` puts it in the
+solve's bundle). A caller that passes no list gets each checked on the host
+at once, which waits and raises as `torch.linalg.eigh` does. On the CPU
+`torch.linalg.eigh` runs and raises itself.
 """
 from __future__ import annotations
 
@@ -19,6 +27,10 @@ import torch
 from plslam_torch.config import SolverConfig
 from plslam_torch.models import residuals as res
 from plslam_torch.models.state import TangentLayout, WindowState
+from plslam_torch.ops.kernels import eigh as eigh_kernel
+from plslam_torch.utils import timers
+
+EIGH_FAILED = "linalg.eigh: the marginalization's eigendecomposition failed to converge"
 
 
 class Prior(NamedTuple):
@@ -67,24 +79,45 @@ def _index_tensors(lay: TangentLayout, device):
                  for a in (drop, keep, _shift_perm(lay), drop_new, keep_new))
 
 
-def _eigh_sym(M):
+def _eigh_sym(M, infos=None):
     """eigh of the symmetric part of M, decomposed in float64 and cast back.
     MKL's float32 `ssyevd` fails to converge on some Jacobi-scaled,
     rank-deficient marginalization matrices (zero rows of unobserved slots)
     where the JAX package's float32 `eigh` returns; these matrices are at
-    most a few hundred wide, so one code path in float64 costs little."""
-    w, V = torch.linalg.eigh((0.5 * (M + M.transpose(-1, -2))).to(torch.float64))
+    most a few hundred wide, so one code path in float64 costs little.
+    On the card the decomposition is queued and its `info` appended to
+    `infos` (a list), or checked on the host at once without one; on the CPU
+    `infos` is not touched."""
+    S = (0.5 * (M + M.transpose(-1, -2))).to(torch.float64)
+    if S.is_cuda:
+        w, V, info = eigh_kernel.eigh_queued(S)
+        timers.count("backend.eigh_queued")
+        if infos is None:  # read back at once (waits)
+            if int(info.max()) != 0:
+                raise torch.linalg.LinAlgError(EIGH_FAILED)
+        else:
+            infos.append(info)
+    else:
+        w, V = torch.linalg.eigh(S)
     return w.to(M.dtype), V.to(M.dtype)
 
 
-def _pinv_psd(M, eps):
-    w, V = _eigh_sym(M)
+def eigh_failed(infos, like: torch.Tensor) -> torch.Tensor:
+    """[] 0/1 in `like`'s dtype and device: 1 where any decomposition's
+    `info` in `infos` is not 0. Queued; nothing is read back."""
+    if not infos:
+        return torch.zeros((), dtype=like.dtype, device=like.device)
+    return torch.any(torch.cat(infos) != 0).to(like.dtype)
+
+
+def _pinv_psd(M, eps, infos=None):
+    w, V = _eigh_sym(M, infos)
     w_inv = torch.where(w > eps, 1.0 / torch.clamp(w, min=eps), torch.zeros_like(w))
     return (V * w_inv[..., None, :]) @ V.transpose(-1, -2)
 
 
-def _sqrt_refactor(H, b, eps):
-    w, V = _eigh_sym(H)
+def _sqrt_refactor(H, b, eps, infos=None):
+    w, V = _eigh_sym(H, infos)
     ok = w > eps
     s = torch.where(ok, torch.sqrt(torch.clamp(w, min=eps)), torch.zeros_like(w))
     s_inv = torch.where(ok, 1.0 / torch.clamp(s, min=float(np.sqrt(eps))), torch.zeros_like(w))
@@ -134,12 +167,14 @@ def _linearize_marginal(state: WindowState, f: res.WindowFactors, lay: TangentLa
 
 def marginalize_old(state: WindowState, f: res.WindowFactors, lay: TangentLayout,
                     cfg: SolverConfig, groups: Optional[tuple] = None,
-                    graphs: Optional[dict] = None) -> Prior:
+                    graphs: Optional[dict] = None, infos: Optional[list] = None) -> Prior:
     """MARGIN_OLD: absorb frame 0 (pose+speedbias) and its landmarks into a
     new linear prior, already re-indexed for the subsequent window shift.
     `groups`: unweighted residual groups at `state` (`SolveStats.groups`),
     reused for the IRLS weights instead of re-running the residual stack.
-    `graphs`: a dict of CUDA graphs to run the linearization through."""
+    `graphs`: a dict of CUDA graphs to run the linearization through.
+    `infos`: a list that collects the decompositions' device `info` on the
+    card (module docstring); None checks each on the host."""
     from plslam_torch.utils import cuda_graph
 
     lp = cfg.line_param
@@ -170,7 +205,7 @@ def marginalize_old(state: WindowState, f: res.WindowFactors, lay: TangentLayout
     d_s = d_raw * sc_d * sc_d
     Cb = Cb_raw * sc_l[:, :, None] * sc_l[:, None, :]
     d_inv = torch.where(d_s > eps, 1.0 / torch.clamp(d_s, min=eps), torch.zeros_like(d_s))
-    Cb_inv = _pinv_psd(Cb, eps)
+    Cb_inv = _pinv_psd(Cb, eps, infos)
     BCd = Bd * d_inv[None, :]
     BCl = torch.einsum("dma,mab->dmb", Bl, Cb_inv)
     H_c = Hcc_s - BCd @ Bd.T - torch.einsum("dmb,emb->de", BCl, Bl)
@@ -182,13 +217,13 @@ def marginalize_old(state: WindowState, f: res.WindowFactors, lay: TangentLayout
     H_dd = H_c[dt_][:, dt_]
     H_dk = H_c[dt_][:, kt]
     H_kk = H_c[kt][:, kt]
-    H_dd_inv = _pinv_psd(H_dd, eps)
+    H_dd_inv = _pinv_psd(H_dd, eps, infos)
     H_new_k = H_kk - H_dk.T @ H_dd_inv @ H_dk
     b_new_k = b_c[kt] - H_dk.T @ H_dd_inv @ b_c[dt_]
 
     # 3) √-refactor the KEPT block, scatter into DC dims, apply the shift
     #    perm to the columns ((J0[:,perm])ᵀ(J0[:,perm]) = H[perm][:,perm])
-    J0k, r0k = _sqrt_refactor(H_new_k, b_new_k, eps)
+    J0k, r0k = _sqrt_refactor(H_new_k, b_new_k, eps, infos)
     J0, r0p = _scatter_kept(J0k, r0k, kt, DC)
     # 4) un-scale J0's columns back to tangent units
     J0 = J0[:, perm] * (1.0 / sc[:DC][perm])[None, :]
@@ -204,10 +239,11 @@ def marginalize_old(state: WindowState, f: res.WindowFactors, lay: TangentLayout
 
 
 def marginalize_second_new(state: WindowState, f: res.WindowFactors, lay: TangentLayout,
-                           cfg: SolverConfig) -> Prior:
+                           cfg: SolverConfig, infos: Optional[list] = None) -> Prior:
     """MARGIN_SECOND_NEW: drop the second-newest pose from the existing prior
     (its visual terms are discarded; its preintegration is merged by the
-    caller — the reference's `slideWindowNew` path)."""
+    caller — the reference's `slideWindowNew` path). `infos` as in
+    `marginalize_old`."""
     eps = _eps(cfg, f.prior_J.dtype)
     H = f.prior_J.T @ f.prior_J
     b = f.prior_J.T @ f.prior_r0
@@ -217,12 +253,12 @@ def marginalize_second_new(state: WindowState, f: res.WindowFactors, lay: Tangen
     b = b * sc
 
     dt_, kt = _index_tensors(lay, H.device)[3:]  # pose slot NW-2 and the rest
-    H_dd_inv = _pinv_psd(H[dt_][:, dt_], eps)
+    H_dd_inv = _pinv_psd(H[dt_][:, dt_], eps, infos)
     H_dk = H[dt_][:, kt]
     H_kk = H[kt][:, kt] - H_dk.T @ H_dd_inv @ H_dk
     b_kk = b[kt] - H_dk.T @ H_dd_inv @ b[dt_]
 
-    J0k, r0k = _sqrt_refactor(H_kk, b_kk, eps)
+    J0k, r0k = _sqrt_refactor(H_kk, b_kk, eps, infos)
     J0, r0p = _scatter_kept(J0k, r0k, kt, lay.dim_cam)
     J0 = J0 * (1.0 / sc)[None, :]
     return Prior(

@@ -2,11 +2,12 @@
 
 `build()` compiles each `plslam_torch/csrc/*.cu` with nvcc for sm_90a into
 an object file (one nvcc process per source, all started together), links
-them into `plslam_torch/_build/libplslam_kernels_<hash>.so` and returns its
-path. The hash covers the sources, the nvcc path and the flags, so a build
-is reused until one of them changes. `lib()` loads that library once;
-each kernel module (`lk.py`, `hamming.py`) binds its own C symbol from it,
-once, and keeps the bound function.
+them into `plslam_torch/_build/libplslam_kernels_<hash>.so` against
+cuSOLVER (`eigh.cu` calls its drivers) and returns its path. The hash covers
+the sources, the nvcc path and the flags, so a build is reused until one of
+them changes. `lib()` loads that library once; each kernel module
+(`lk.py`, `hamming.py`, `eigh.py`) binds its own C symbol from it, once, and
+keeps the bound function.
 The sources have a plain C interface and include no PyTorch header, so a
 build takes seconds.
 """
@@ -23,6 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-lcusolver"]
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -45,7 +47,9 @@ def build() -> str:
     path. `<library>.log` holds nvcc's `-Xptxas -v` lines of every source."""
     srcs = sources()
     nvcc = _nvcc()
-    h = hashlib.sha256("\0".join([nvcc, *NVCC_FLAGS]).encode())
+    link_flags = [*LINK_FLAGS, "-Xlinker", "-rpath", "-Xlinker",
+                  os.path.join(os.path.dirname(os.path.dirname(nvcc)), "lib64")]
+    h = hashlib.sha256("\0".join([nvcc, *NVCC_FLAGS, *link_flags]).encode())
     for s in srcs:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as fh:
@@ -67,7 +71,8 @@ def build() -> str:
                 raise RuntimeError(f"nvcc failed on {os.path.basename(s)} ({p.returncode}):\n{out}")
             logs.append(f"[{os.path.basename(s)}]\n{out.strip()}")
         tmp = f"{so}.{tag}"
-        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs, *link_flags], capture_output=True,
+                              text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
     finally:

@@ -401,6 +401,7 @@ def _burst_tail(seq, config, est, fp, f_lines, feeder, k0, stride, B, load, ts_o
 
     from plslam_torch.models import burst as burst_mod
     from plslam_torch.models.frontend_points import to_u8
+    from plslam_torch.models.marginalization import EIGH_FAILED
 
     def note(**entry):
         if burst_log is not None:
@@ -459,6 +460,8 @@ def _burst_tail(seq, config, est, fp, f_lines, feeder, k0, stride, B, load, ts_o
                 list(n_imu), [td] * B)
             o = dict(zip(outs, HostCopy(*outs.values()).get()))  # the chunk's one wait
             t_read = time.perf_counter()
+            if np.any(o["eigh_failed"] > 0):  # the steps' marginalization flags
+                raise torch.linalg.LinAlgError(EIGH_FAILED)
             emitted = 0
             for j in range(B):
                 if o["fail"][j]:

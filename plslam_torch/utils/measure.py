@@ -3,7 +3,8 @@
 host timing, the LK kernel's inputs at the main path's shapes, the
 PyTorch library calls that compute the Hamming matrix (a yardstick only: no
 path of the port calls them), the pose graph's solve timed eagerly and
-through CUDA graphs, and the host's waits on the card, stamped."""
+through CUDA graphs, the host's waits on the card, stamped, and a call's host
+time behind a card kept busy by a sleep."""
 from __future__ import annotations
 
 import contextlib
@@ -84,6 +85,38 @@ def device_us(fn, name, reps=50):
         print(f"device_us: profiler session {attempt} of {PROFILER_SESSIONS} kept no '{name}' "
               f"record of {reps} calls", file=sys.stderr, flush=True)
     raise AssertionError(f"the profiler saw no '{name}' kernel in {PROFILER_SESSIONS} × {reps} calls")
+
+
+def busy_card(ms: float) -> torch.cuda.Event:
+    """Queue `torch.cuda._sleep` on the current stream for at least `ms` ms
+    (sized by a timed sleep first) and return an event recorded after it:
+    while `event.query()` is False the card is still busy with the sleep."""
+    probe = 10_000_000  # cycles
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    cycles = int(probe * ms / max(start.elapsed_time(end), 1e-3)) + 1
+    torch.cuda._sleep(cycles)
+    done = torch.cuda.Event()
+    done.record()
+    return done
+
+
+def host_ms_behind_busy_card(fn, busy_ms: float = 100.0):
+    """(host ms of one call of `fn` queued behind `busy_card(busy_ms)`,
+    whether the card was still busy when the call returned). A call that
+    waits for the card takes about `busy_ms` and finds it idle; one that
+    only queues returns at once."""
+    done = busy_card(busy_ms)
+    t0 = time.perf_counter()
+    fn()
+    ms = 1e3 * (time.perf_counter() - t0)
+    busy = not done.query()
+    torch.cuda.synchronize()
+    return ms, busy
 
 
 def shifted_texture(rng, h, w, dx, dy, sigma=3.0):

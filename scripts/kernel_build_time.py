@@ -28,7 +28,7 @@ def parallel(tmp):
 
 def single(tmp):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    os.path.join(tmp, "lib.so"), *_build.sources()], check=True,
+                    os.path.join(tmp, "lib.so"), *_build.sources(), *_build.LINK_FLAGS], check=True,
                    capture_output=True)
 
 

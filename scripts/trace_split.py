@@ -14,7 +14,9 @@ and prints the benchmark's result line followed by a line of the split:
 * `host_ms`: host ms a published frame (a camera frame for
   `runner.load_wait` and `points.process`) of each span, over the window
   outside its profiled part, where the benchmark sums its own host times;
-  `host_waits`, the `host_wait` counter a published frame there; the
+  `host_waits`, the `host_wait` counter a published frame there, and
+  `eigh_queued`, the `backend.eigh_queued` counter (the marginalization's
+  eigendecompositions queued on the card without a host wait); the
   per-stage readings the spans give (`load_wait_ms`, `frontend_host_ms`,
   `frontend_wait_ms`, `estimator_work_ms` = tables + preintegrate + finish +
   slide, `estimator_pack_ms`, `estimator_launch_ms`, `estimator_wait_ms`,
@@ -197,7 +199,8 @@ def host_split(records, probes):
             estimator_pack_ms=ms["estimator.pack"] / pub,
             estimator_launch_ms=ms["estimator.launch"] / pub,
             estimator_wait_ms=ms["estimator.wait"] / pub,
-            host_waits=waits / pub)
+            host_waits=waits / pub,
+            eigh_queued=counters["backend.eigh_queued"] / pub)
     out["init_s"] = setup["estimator.initialize"]
     out["capture_s"] = setup["graph.capture"]
     if n["pose_graph.optimize"]:

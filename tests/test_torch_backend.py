@@ -157,6 +157,33 @@ def test_float32_eigh_returns_where_jax_does(seed):
         np.testing.assert_allclose(a, c, rtol=0, atol=1e-5 * np.abs(c).max())
 
 
+def test_finish_solve_raises_on_the_eigh_flag():
+    """The solve's bundle carries the marginalization's eigh flag last
+    (`backend_tick` leaves it on the card): `_finish_solve` takes a bundle
+    laid out by `pack_bundle` with the flag at 0 and raises `LinAlgError`,
+    as `torch.linalg.eigh` does, with it at 1."""
+    import types
+
+    from plslam_torch.config import PLSlamConfig as TPLSlamConfig
+    from plslam_torch.config import SolverConfig as TSolverConfig
+    from plslam_torch.models.estimator import Estimator, pack_bundle
+
+    est = Estimator(TPLSlamConfig(solver=TSolverConfig(max_features=8, max_line_feats=4,
+                                                       window_size=4)), device="cpu")
+    MF, ML = est.cfg.max_features, est.cfg.max_line_feats
+    z = lambda *shape: torch.zeros(shape, dtype=est.dtype)  # noqa: E731
+    stats = types.SimpleNamespace(cost0=z(), cost=z(), cost_robust0=z(), cost_robust=z(),
+                                  accepted=z())
+    aux = dict(commit=z(MF), lcommit=z(ML), pt_valid=z(MF), ln_solved=z(ML), pt_err=z(MF),
+               ln_err=z(ML), p_w=z(MF, 3), eigh_failed=z())
+    st = est._device_state()
+    m = est._finish_solve(pack_bundle(st, stats, aux).numpy().astype(np.float64))
+    assert m["n_pts"] == 0
+    b = pack_bundle(st, stats, {**aux, "eigh_failed": torch.ones((), dtype=est.dtype)})
+    with pytest.raises(torch.linalg.LinAlgError):
+        est._finish_solve(b.numpy().astype(np.float64))
+
+
 # ---------------------------------------------------------------- estimator
 EST_CONFIG = PLSlamConfig(solver=SolverConfig(max_features=64, max_line_feats=16, dtype="float64"))
 

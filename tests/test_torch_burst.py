@@ -212,3 +212,49 @@ def test_handback_restores_the_frontend_clock(runs):
     assert len(handbacks) == 1
     handed, prev_t = handbacks[0]
     assert handed == prev_t == cam_t[last_k - 1]
+
+
+def test_burst_readback_raises_on_the_eigh_flag(monkeypatch):
+    """A chunk whose second step's marginalization flag is set (the steps
+    leave it on the card): the chunk's one readback in `runner._burst_tail`
+    raises `LinAlgError` before it emits a pose. The steps, the carry and
+    the IMU packer are stand-ins; only the readback runs."""
+    import types
+
+    from plslam_torch import runner
+
+    W, B, stride = 4, 2, 2
+
+    class Step:
+        OUTPUTS = burst_mod.BurstStep.OUTPUTS
+
+        def __init__(self, *a):
+            pass
+
+        def run_chunk(self, carry, imgs, *a):
+            outs = {name: torch.zeros(B) for name in self.OUTPUTS}
+            outs["eigh_failed"][1] = 1.0
+            return carry, outs
+
+    class Packer:
+        def __init__(self, *a):
+            pass
+
+        def interval(self, t, td):
+            return np.zeros((3, 3)), np.zeros((3, 3)), np.zeros(2), 2
+
+    monkeypatch.setattr(burst_mod, "make_carry", lambda *a: None)
+    monkeypatch.setattr(burst_mod, "BurstStep", Step)
+    monkeypatch.setattr(burst_mod, "ImuChunkPacker", Packer)
+    monkeypatch.setattr(burst_mod, "sync_back", lambda *a, **kw: None)
+    seq = types.SimpleNamespace(cam_t=0.05 * np.arange(16), imu_t=None, imu_acc=None,
+                                imu_gyr=None)
+    est = types.SimpleNamespace(device=torch.device("cpu"), timestamps=np.zeros(W + 1), td=0.0,
+                                cfg=types.SimpleNamespace(window_size=W))
+    feeder = types.SimpleNamespace(i=0, prev_t=0.0, prev_acc=None, prev_gyr=None)
+    ts_out = []
+    with pytest.raises(torch.linalg.LinAlgError):
+        runner._burst_tail(seq, None, est, None, None, feeder, 4, stride, B,
+                           lambda k: np.zeros((4, 4), np.float32), ts_out, [], [], 0, 100,
+                           False, None, None, [])
+    assert ts_out == []

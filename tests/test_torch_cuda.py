@@ -19,7 +19,9 @@ on both devices: ids exact, segments 1e-8 (sums in another order); CPU vs
 card run_synthetic 1e-6 m in float64; keyframe descriptors equal but at
 BRIEF ties, global descriptors 1e-5; the float32 pose graph's edges and
 optimized poses 1e-4; a checkpoint's tensors and the resumed run bit for
-bit.
+bit; the marginalization's queued eigendecompositions: the card still busy
+behind a 100-ms sleep when both marginalizations return, their priors bit
+for bit with `torch.linalg.eigh`'s, a planted NaN raising at `finalize`.
 """
 import numpy as np
 import pytest
@@ -344,3 +346,112 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     _drive(est, seq, 16, 24)
     for name in ("p", "q", "v", "ba", "bg"):
         np.testing.assert_array_equal(getattr(est, name), getattr(full, name), err_msg=name)
+
+
+def _marg_window(dev, dtype):
+    """A window at the benchmark cells' widths (window 10, 192 feature
+    slots, 64 line slots) packed from the simulator, its first prior from
+    `marginalize_old` installed for `marginalize_second_new`, and a dict of
+    CUDA graphs warmed with both, as the estimator runs them."""
+    from plslam_torch.config import SolverConfig
+    from plslam_torch.io import synthetic
+    from plslam_torch.models import marginalization as marg
+    from plslam_torch.models import packing
+    from plslam_torch.models import residuals as res
+    from plslam_torch.models.state import layout
+
+    cfg = SolverConfig(max_features=192, max_line_feats=64, window_size=10)
+    lay = layout(cfg)
+    seq = synthetic.make_sequence(duration=6.0, n_points=420, n_lines=160, seed=3)
+    st, f = packing.factors_from_synthetic(seq, list(range(0, 55, 5)), cfg, lay, dtype=dtype,
+                                           device=dev)
+    groups = res.residual_groups(st, f, lay, cfg.focal_length, cfg.line_param)
+    graphs = {}
+    for _ in range(2):
+        f2 = marg.install_prior(f, marg.marginalize_old(st, f, lay, cfg, groups=groups,
+                                                        graphs=graphs))
+        marg.marginalize_second_new(st, f2, lay, cfg)
+    return cfg, lay, st, f, f2, groups, graphs
+
+
+def test_marginalization_queues_behind_a_busy_card(dev):
+    """With the card held 100 ms by `torch.cuda._sleep`, `marginalize_old`
+    and `marginalize_second_new` return while the card is still busy with
+    the sleep, well inside it: their eigendecompositions (3 and 2, counted
+    by the tracer) queue without a host wait; their flags read 0 once the
+    card is done. The host time left is launches (an H100 host: 5.0-7.7 ms
+    for `marginalize_old`, 3.4-4.6 ms for `marginalize_second_new`, the same
+    on an idle card), held under a fifth of the sleep."""
+    from plslam_torch.models import marginalization as marg
+    from plslam_torch.utils import timers
+    from plslam_torch.utils.measure import host_ms_behind_busy_card
+
+    cfg, lay, st, f, f2, groups, graphs = _marg_window(dev, torch.float32)
+    calls = {"old": lambda infos: marg.marginalize_old(st, f, lay, cfg, groups=groups,
+                                                       graphs=graphs, infos=infos),
+             "new": lambda infos: marg.marginalize_second_new(st, f2, lay, cfg, infos=infos)}
+    for mode, fn in calls.items():
+        infos = []
+        timers.enable()
+        try:
+            ms, busy = host_ms_behind_busy_card(lambda: fn(infos), 100.0)
+            n = sum(c.n for c in timers.records()["counts"] if c.name == "backend.eigh_queued")
+        finally:
+            timers.disable()
+            timers.reset()
+        assert busy and ms < 20.0, (mode, ms, busy)
+        assert n == len(infos) == {"old": 3, "new": 2}[mode]
+        assert int(marg.eigh_failed(infos, st.p)) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_queued_prior_matches_library_eigh(dev, dtype):
+    """The priors of both marginalizations with their decompositions queued
+    (`cusolverDnXsyevBatched`) against `torch.linalg.eigh`'s (`syevd` for one
+    matrix, the same batched driver for the line blocks): J and r0 bit for
+    bit, the decompositions in float64 as before; JᵀJ and Jᵀr0 within 1e-9
+    of JᵀJ's widest entry is the bound where the bits would part."""
+    from unittest import mock
+
+    from plslam_torch.models import marginalization as marg
+
+    cfg, lay, st, f, f2, groups, graphs = _marg_window(dev, dtype)
+
+    def library(M, infos=None):
+        w, V = torch.linalg.eigh((0.5 * (M + M.transpose(-1, -2))).to(torch.float64))
+        return w.to(M.dtype), V.to(M.dtype)
+
+    for fn in (lambda: marg.marginalize_old(st, f, lay, cfg, groups=groups, graphs=graphs,
+                                            infos=[]),
+               lambda: marg.marginalize_second_new(st, f2, lay, cfg, infos=[])):
+        queued = fn()
+        with mock.patch.object(marg, "_eigh_sym", library):
+            ref = fn()
+        H, Hr = queued.J.T @ queued.J, ref.J.T @ ref.J
+        tol = 1e-9 * float(Hr.abs().max())
+        torch.testing.assert_close(H, Hr, rtol=0, atol=tol)
+        torch.testing.assert_close(queued.J.T @ queued.r0, ref.J.T @ ref.r0, rtol=0, atol=tol)
+        assert torch.equal(queued.J, ref.J) and torch.equal(queued.r0, ref.r0)
+
+
+def test_failed_decomposition_raises_at_finalize(dev):
+    """A non-finite prior planted in a backend tick's factors: the tick's
+    eigh flag reads 1 without the tick waiting on it, and the estimator's
+    `finalize` raises `LinAlgError` at the bundle's readback."""
+    from plslam_torch.config import PLSlamConfig
+    from plslam_torch.models.estimator import (MARGIN_SECOND_NEW, Estimator, backend_tick,
+                                               pack_bundle)
+    from plslam_torch.utils.device import HostCopy
+
+    cfg, lay, st, f, f2, _, _ = _marg_window(dev, torch.float32)
+    bad = f2._replace(prior_J=f2.prior_J.clone().fill_(float("nan")))
+    zeros = lambda n: torch.zeros(n, dtype=st.p.dtype, device=dev)  # noqa: E731
+    st_out, stats, prior, aux = backend_tick(
+        st, bad, f.pt_valid, zeros(lay.max_f), zeros(lay.max_f), zeros(lay.max_l), f.ln_valid,
+        lay, cfg, ee=False, etd=False, iters=2, marg_mode="new")
+    assert float(aux["eigh_failed"]) == 1.0
+    est = Estimator(PLSlamConfig(solver=cfg), device=dev)
+    est._pending = dict(bundle=HostCopy(pack_bundle(st_out, stats, aux)), prior=prior,
+                        mode="new", marg_flag=MARGIN_SECOND_NEW, m={"t": 0.0}, relo=None)
+    with pytest.raises(torch.linalg.LinAlgError):
+        est.finalize()

@@ -299,7 +299,8 @@ def test_burst_chunk_counts_its_dropped_frames(tracer, monkeypatch):
             outs = {"fail": fail, "keyframe": torch.zeros(B, dtype=torch.bool),
                     "p": torch.zeros(B, 3), "q": torch.tensor([[1.0, 0, 0, 0]] * B),
                     "cost": torch.ones(B), "long_tracked": torch.full((B,), 20),
-                    "n_pts": torch.full((B,), 20), "td": torch.zeros(B)}
+                    "n_pts": torch.full((B,), 20), "td": torch.zeros(B),
+                    "eigh_failed": torch.zeros(B)}
             return carry + 1, outs
 
     class Packer:

@@ -1,5 +1,6 @@
 """Device ms a published frame of the operations launched under the line
-frontend's span (`FrontendLines.process`), in the traced part."""
+frontend's span (`FrontendLines.process`; in a burst step the line tick,
+`frontend_lines.tick`), in the traced part."""
 UNIT = "ms"
 
 

@@ -1,6 +1,7 @@
 """Host ms a published frame inside `Estimator.process_frame` and
-`finalize` (their wall time, waits on the card included), over the window
-outside its traced part."""
+`finalize` (their wall time, waits on the card included; in a burst step,
+`BurstStep.step` less its frontends, the read of its keyframe flag
+included), over the window outside its traced part."""
 UNIT = "ms"
 
 

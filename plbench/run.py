@@ -11,7 +11,10 @@ per-layer metrics read from a profiled part of the window. Both compare
 what the window produced with the plain reference (`checks.py`) and print
 each number beside its limit, on standard error last and under "checks"
 last in the result line. Without a CUDA card, or with fewer cards than the
-cell asks for, it prints no result and exits 3.
+cell asks for, it prints no result and exits 3; with a configuration that
+the port or the scene generator would not take whole (a camera model the
+generator cannot draw, a key or section that would be dropped), it exits 2
+before rendering.
 """
 from __future__ import annotations
 
@@ -115,6 +118,10 @@ def execute(a) -> tuple[dict, dict]:
     from plbench.cell import HERE, Cell, load_json, port_config
 
     cell = Cell(a.workload)
+    try:
+        recipe, cfg = cell.recipe(), port_config(cell.config)
+    except ValueError as e:
+        raise Failure(f"configuration {cell.entry['config']}: {e}", 2) from None
     import torch
 
     if a.device == "cuda":
@@ -138,11 +145,9 @@ def execute(a) -> tuple[dict, dict]:
     if a.control == "tf32":
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
-    recipe = cell.recipe()
     if a.scene_seconds is not None:
         recipe["scene"] = dict(recipe["scene"], duration_s=a.scene_seconds)
     path, cached = scene.recording(recipe, a.seed, os.path.join(CACHE, "scenes"), dev)
-    cfg = port_config(cell.config)
     stride = max(1, round(20 / cfg.tracker.freq))
     replay = cell.traffic["replay"]
     loop = bool(cell.config["loop"]["loop_closure"])
@@ -173,7 +178,7 @@ def execute(a) -> tuple[dict, dict]:
     try:
         runner.run_euroc(path, cfg, use_lines=bool(cell.config["use_lines"]), loop_closure=loop,
                          pipeline=bool(replay["pipeline"]), burst=int(replay["burst"]),
-                         device=dev)
+                         burst_log=probes.burst_log, device=dev)
     except WindowClosed:
         closed = True
         on_trace_end()
@@ -218,6 +223,7 @@ def execute(a) -> tuple[dict, dict]:
     import numpy as np
 
     truth = np.load(os.path.join(path, "truth.npz"))
+    probes.add_chunk_poses()
     ts = np.array(sorted(probes.poses))
     ate = (ate_yaw(ts, np.stack([probes.poses[t] for t in ts]), truth["frame_t"], truth["gt_p"])
            if len(ts) >= 10 else None)
@@ -226,7 +232,9 @@ def execute(a) -> tuple[dict, dict]:
             "camera_frames": camera, "latencies": len(lat), "window_s": window_s,
             "setup_s": setup_s, "scene_cached": cached, "compared": compared,
             "check_s": check_s, "not_compared": unjudged, "control": a.control, "counts": probes.counts,
-            "traced": probes.traced}
+            "traced": probes.traced,
+            "from_chunk": {k: sum(1 for s in v if s["chunk"]) for k, v in probes.samples.items()},
+            "chunks": len(probes.chunks()), "dropped": probes.dropped}
     result = {"correct": bool(correct), "attempted": attempted, "failed": failed,
               "metrics": metrics,
               "device": {"platform": "gpu" if dev.type == "cuda" else dev.type,

@@ -10,6 +10,14 @@ on a cylinder shell, and 752x480 frames of textured landmark stamps and
 anti-aliased segments. Frames are rendered in torch on the given device and
 written as 8-bit PNGs by a pool of threads.
 
+The camera projects through its lens (`Lens`): an ideal pinhole, a pinhole
+with radial-tangential distortion, or the Kannala-Brandt (equidistant)
+θ-polynomial. Under a lens with a nonzero coefficient each segment is drawn
+as a polyline of sub-segments at most 4 px long, projected from points
+along the 3-D segment, so a line that the lens bends is drawn bent; a
+landmark's stamp is shifted to its lensed centre and not warped. With no
+distortion the frames are those of the ideal pinhole, drawn by its own path.
+
 The recipe's `layout_seed` places the landmarks and segments, so every run
 of a mix sees the same frames and does the same tracking work; `--seed`
 draws the IMU's biases and noise. The frames are rendered once into
@@ -30,6 +38,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from plbench.cell import MODELS
+
 G_WORLD = (0.0, 0.0, 9.81007)
 # body_T_cam of the simulated rig: the camera looks along body +x
 R_BC = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
@@ -40,6 +50,44 @@ TRAJECTORY_DEFAULTS = dict(radius=4.0, omega=0.6, z_amp=0.6, z_omega=1.1, pitch_
 KEEP_SCENES = 2  # renders kept in the cache
 KEEP_SEEDS = 8  # seed folders kept beside each render
 VERSION = 2  # bump when the generator's output changes
+
+
+class Lens:
+    """A camera's map from normalized coordinates (x/z, y/z) to pixels.
+    `model` "pinhole": radial-tangential distortion of the normalized point
+    (k1, k2, p1, p2), then fx, fy, cx, cy; "kannala_brandt": θ = atan2(‖(x,
+    y)‖, z) and r(θ) = θ + kb2 θ³ + kb3 θ⁵ + kb4 θ⁷ + kb5 θ⁹ along the
+    point's direction, then fx, fy, cx, cy. `ideal`: a pinhole with every
+    coefficient 0."""
+
+    def __init__(self, cam: dict):
+        self.model = cam.get("model", "pinhole")
+        if self.model not in MODELS:
+            raise ValueError(f"the scene generator cannot draw the camera model {self.model!r}: "
+                             f"it draws {sorted(MODELS)}")
+        self.fx, self.cx, self.cy = cam["fx"], cam["cx"], cam["cy"]
+        self.fy = cam.get("fy", cam["fx"])
+        self.k = tuple(float(cam.get(k, 0.0)) for k in MODELS[self.model][1])
+        self.ideal = self.model == "pinhole" and not any(self.k)
+
+    def pixels(self, mn):
+        """Normalized coordinates [...,2] → pixels [...,2], in their dtype."""
+        x, y = mn[..., 0], mn[..., 1]
+        if self.model == "pinhole":
+            k1, k2, p1, p2 = self.k
+            r2 = x * x + y * y
+            rad = k1 * r2 + k2 * r2 * r2
+            xd = x + x * rad + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+            yd = y + y * rad + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        else:
+            k2, k3, k4, k5 = self.k
+            r = torch.sqrt(x * x + y * y)
+            th = torch.atan2(r, torch.ones_like(r))
+            t2 = th * th
+            rd = th * (1.0 + t2 * (k2 + t2 * (k3 + t2 * (k4 + t2 * k5))))
+            scale = torch.where(r > 1e-12, rd / torch.clamp(r, min=1e-12), torch.ones_like(r))
+            xd, yd = x * scale, y * scale
+        return torch.stack([self.fx * xd + self.cx, self.fy * yd + self.cy], -1)
 
 
 def _ypr_to_rot(y, p, r):
@@ -153,14 +201,18 @@ def make_world(recipe: dict, seed: int) -> dict:
     R_wc = R_wb @ T(R_bc)
     p_wc = gt_p + torch.einsum("fij,j->fi", R_wb, T(p_bc))
     cam = recipe["camera"]
-    fx, cx, cy, w, h = cam["fx"], cam["cx"], cam["cy"], cam["width"], cam["height"]
+    lens = Lens(cam)
+    fx, fy, cx, cy, w, h = lens.fx, lens.fy, lens.cx, lens.cy, cam["width"], cam["height"]
 
     def cam_points(pts):
         return torch.einsum("flj,fji->fli", T(pts)[None] - p_wc[:, None], R_wc)
 
     def in_img(pc):
         z = torch.clamp(pc[..., 2], min=1e-12)
-        u, v = fx * pc[..., 0] / z + cx, fx * pc[..., 1] / z + cy
+        if lens.ideal:
+            u, v = fx * pc[..., 0] / z + cx, fy * pc[..., 1] / z + cy
+        else:
+            u, v = lens.pixels(pc[..., :2] / z[..., None]).unbind(-1)
         return (u > 5) & (u < w - 5) & (v > 5) & (v < h - 5)
 
     pc = cam_points(landmarks)
@@ -173,7 +225,8 @@ def make_world(recipe: dict, seed: int) -> dict:
     return dict(imu_t=imu_t, acc=acc, gyr=gyr, frame_t=frame_t, gt_p=gt_p.numpy(),
                 gt_q=_rot_to_quat(R_wb.numpy()), gt_v=gt_v.numpy(), obs=obs.numpy(),
                 obs_valid=obs_valid.numpy(), line_obs=line_obs.numpy(),
-                line_valid=line_valid.numpy(), R_bc=R_bc, p_bc=p_bc)
+                line_valid=line_valid.numpy(), line_cam=torch.cat([pcs, pce], -1).numpy(),
+                R_bc=R_bc, p_bc=p_bc)
 
 
 def landmark_stamps(n: int, r: int, sigma: float) -> np.ndarray:
@@ -205,12 +258,16 @@ def landmark_stamps(n: int, r: int, sigma: float) -> np.ndarray:
 class Renderer:
     """Frames of the world in torch on `device`: a background gradient, the
     landmark stamps shifted bilinearly to their sub-pixel projections, and
-    anti-aliased segments. Returns uint8 [H,W] arrays."""
+    anti-aliased segments (polylines under a lens). Returns uint8 [H,W]
+    arrays."""
+
+    MAX_STEP_PX = 4.0  # the longest sub-segment of a segment drawn under a lens
 
     def __init__(self, world: dict, recipe: dict, device):
         cam, sc = recipe["camera"], recipe["scene"]
         self.h, self.w = cam["height"], cam["width"]
-        self.fx, self.cx, self.cy = cam["fx"], cam["cx"], cam["cy"]
+        self.lens = Lens(cam)
+        self.fx, self.fy, self.cx, self.cy = self.lens.fx, self.lens.fy, self.lens.cx, self.lens.cy
         self.dev = torch.device(device)
         self.world = world
         sigma = sc["blob_sigma"]
@@ -228,8 +285,50 @@ class Renderer:
     def _px(self, mn):
         # float32 pixel coordinates, as the port's camera maps them
         mn = torch.as_tensor(mn, dtype=torch.float32)
-        return torch.stack([self.fx * mn[..., 0] + self.cx, self.fx * mn[..., 1] + self.cy],
+        if not self.lens.ideal:
+            return self.lens.pixels(mn).double()
+        return torch.stack([self.fx * mn[..., 0] + self.cx, self.fy * mn[..., 1] + self.cy],
                            -1).double()
+
+    def _polyline(self, ps, pe):
+        """Pixels of points along the 3-D segment ps → pe (camera frame),
+        dense enough that no sub-segment is longer than `MAX_STEP_PX`."""
+        ps, pe = torch.as_tensor(ps), torch.as_tensor(pe)
+        n = 8
+        while True:
+            s = torch.linspace(0.0, 1.0, n + 1, dtype=torch.float64)[:, None]
+            p = (1.0 - s) * ps + s * pe
+            uv = self.lens.pixels(p[:, :2] / p[:, 2:3])
+            step = float(torch.linalg.norm(uv[1:] - uv[:-1], dim=-1).max())
+            if step <= self.MAX_STEP_PX or n >= 1 << 14:
+                return uv
+            n *= max(2, int(np.ceil(step / (0.75 * self.MAX_STEP_PX))))
+
+    def _draw_polyline(self, img, uv):
+        """Add one anti-aliased polyline: at each pixel the strongest of its
+        sub-segments' strokes (the straight segments' stroke profile)."""
+        w, h = self.w, self.h
+        xlo, xhi = int(max(0, float(uv[:, 0].min()) - 2)), int(min(w, float(uv[:, 0].max()) + 3))
+        ylo, yhi = int(max(0, float(uv[:, 1].min()) - 2)), int(min(h, float(uv[:, 1].max()) + 3))
+        if xhi <= xlo or yhi <= ylo:
+            return
+        uv = uv.to(self.dev)
+        a, d = uv[:-1], uv[1:] - uv[:-1]
+        L = torch.linalg.norm(d, dim=-1)
+        keep = L > 1e-9
+        a, d, L = a[keep], d[keep], L[keep]
+        u = d / L[:, None]
+        stroke = torch.zeros((yhi - ylo, xhi - xlo), dtype=torch.float64, device=self.dev)
+        for i in range(0, len(L), 32):  # a few sub-segments at a time, to bound memory
+            sl = slice(i, i + 32)
+            px = self.xgrid[:, xlo:xhi][None] - a[sl, 0, None, None]
+            py = self.ygrid[ylo:yhi][None] - a[sl, 1, None, None]
+            ux, uy = u[sl, 0, None, None], u[sl, 1, None, None]
+            t = px * ux + py * uy
+            dist = torch.abs(-px * uy + py * ux)
+            on = (t > 0) & (t < L[sl, None, None])
+            stroke = torch.maximum(stroke, (torch.clamp(1.4 - dist, 0.0, 1.0) * on).amax(0))
+        img[ylo:yhi, xlo:xhi] += 0.45 * stroke.float()
 
     def frame(self, k: int) -> torch.Tensor:
         w, h, r = self.w, self.h, self.r
@@ -251,7 +350,13 @@ class Renderer:
             cols = (x0[:, None] + self.offs)[:, None, :].expand_as(s)
             img.index_put_((rows.reshape(-1), cols.reshape(-1)), s.reshape(-1), accumulate=True)
         lvis = np.nonzero(self.world["line_valid"][k])[0]
-        if len(lvis):
+        if len(lvis) and not self.lens.ideal:
+            lo = self.world["line_obs"][k][lvis]
+            chord = self._px(lo[:, 2:4]) - self._px(lo[:, :2])
+            for i in lvis[(torch.linalg.norm(chord, dim=-1) >= 5).numpy()]:
+                lc = self.world["line_cam"][k][i]
+                self._draw_polyline(img, self._polyline(lc[:3], lc[3:]))
+        elif len(lvis):
             lo = self.world["line_obs"][k][lvis]
             p0, p1 = self._px(lo[:, :2]), self._px(lo[:, 2:4])
             d = p1 - p0

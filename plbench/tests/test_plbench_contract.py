@@ -72,6 +72,41 @@ def test_metrics(bench):
         assert len(c.end_to_end) >= 2 and c.per_layer
 
 
+def test_per_layer_cells(bench):
+    """A per-layer metric's `workloads` names cells of the benchmark, each
+    once; the layer metrics read in every cell, the burst cell's through
+    the spans inside its steps, and the burst cell's own metric lists it
+    alone."""
+    cells = [w["name"] for w in bench["workloads"]]
+    for m in bench["per_layer"]:
+        if "workloads" in m:
+            assert m["workloads"] and len(set(m["workloads"])) == len(m["workloads"])
+            assert set(m["workloads"]) <= set(cells), m
+    by_name = {m["name"]: m for m in bench["per_layer"]}
+    for name in ("points_device_ms", "lines_device_ms", "solve_device_ms", "solve_host_ms"):
+        assert "workloads" not in by_name[name]
+    chunk = by_name["chunk_ms"]
+    assert chunk["workloads"] == ["euroc_plvio.burst"] and chunk["moves"] == "frames_per_s"
+    assert chunk["source"] == "program_span" and chunk["layer"] == "runner"
+    burst = cell.Cell("euroc_plvio.burst")
+    assert {m["name"] for m in burst.end_to_end} == {"frames_per_s", "setup_s"}
+    assert {m["name"] for m in burst.per_layer} == {
+        "decode_ms", "chunk_ms", "points_device_ms", "lines_device_ms", "solve_device_ms",
+        "solve_host_ms", "lk_roofline", "hamming_roofline", "device_idle_pct"}
+
+
+def test_burst_traffic():
+    """The burst mix is the stream mix's scene (its length aside) replayed in
+    chunks of 8, its window opening after the first chunk."""
+    stream = json.load(open(os.path.join(cell.HERE, "traffic", "stream.json")))
+    burst = json.load(open(os.path.join(cell.HERE, "traffic", "burst.json")))
+    assert ({k: v for k, v in burst["scene"].items() if k != "duration_s"}
+            == {k: v for k, v in stream["scene"].items() if k != "duration_s"})
+    assert burst["scene"]["duration_s"] >= stream["scene"]["duration_s"]
+    assert burst["replay"] == {"pipeline": True, "burst": 8}
+    assert burst["check"] == stream["check"]
+
+
 def test_limits_cover_the_numbers():
     for name in os.listdir(os.path.join(cell.HERE, "limits")):
         lim = json.load(open(os.path.join(cell.HERE, "limits", name)))

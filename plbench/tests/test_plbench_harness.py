@@ -43,18 +43,28 @@ def test_last_line_contract():
     assert len(checks) == len(res["checks"]) and err[-len(checks):] == checks
 
 
-def _fault(monkeypatch, which):
-    """Break the timed path underneath the harness: `which` names the fault."""
-    from plslam_torch.models import estimator, frontend_lines, frontend_points
+def _fault(monkeypatch, which, when=None):
+    """Break the timed path underneath the harness: `which` names the fault;
+    `when`, where given, says whether a prior fault acts at this tick (by
+    default from the run's first prior on)."""
+    from plslam_torch.models import burst, estimator, frontend_lines, frontend_points
     from plslam_torch.models import marginalization
     from plslam_torch.ops.kernels import hamming
+
+    # the streaming estimator's solve and the burst step's (its module binds
+    # `backend_tick` by name)
+    def solve_fault(backend_tick):
+        monkeypatch.setattr(estimator, "backend_tick", backend_tick)
+        monkeypatch.setattr(burst, "backend_tick", backend_tick)
 
     if which in ("stale_prior", "dropped_prior"):
         tick = estimator.backend_tick
 
         def backend_tick(st, f, *a, **kw):
             st_out, stats, prior, aux = tick(st, f, *a, **kw)
-            if prior is not None and which == "stale_prior":
+            if prior is None or (when is not None and not when()):
+                pass
+            elif which == "stale_prior":
                 # once there is a prior, the one it was given: it stops moving
                 given = marginalization.Prior(
                     J=f.prior_J, r0=f.prior_r0, valid=f.prior_valid, p=f.prior_p, q=f.prior_q,
@@ -62,11 +72,11 @@ def _fault(monkeypatch, which):
                     q_bc=f.prior_q_bc, td=f.prior_td)
                 prior = marginalization.Prior(*[torch.where(f.prior_valid > 0, a, b)
                                                 for a, b in zip(given, prior)])
-            elif prior is not None:  # left out of the next solve
+            else:  # left out of the next solve
                 prior = prior._replace(valid=torch.zeros_like(prior.valid))
             return st_out, stats, prior, aux
 
-        monkeypatch.setattr(estimator, "backend_tick", backend_tick)
+        solve_fault(backend_tick)
     elif which == "stale_solve":
         tick = estimator.backend_tick
 
@@ -74,7 +84,7 @@ def _fault(monkeypatch, which):
             st_out, stats, prior, aux = tick(st, *a, **kw)
             return st, stats, prior, aux
 
-        monkeypatch.setattr(estimator, "backend_tick", backend_tick)
+        solve_fault(backend_tick)
     elif which in ("lk_answer", "lk_half"):
         lk = frontend_points.lk_track
 
@@ -102,22 +112,27 @@ def _fault(monkeypatch, which):
         monkeypatch.setattr(owner, "hamming_matrix", hamming_matrix)
 
 
+def every_tick(monkeypatch):
+    """Compare every tick of the window, up to the cell's most: a short
+    window holds few ticks, and a prior that stops moving shows only at a
+    tick that has a prior to keep and would have moved it."""
+    from plbench import probes
+
+    init = probes.Probes.__init__
+
+    def __init__(self, *a, **kw):
+        init(self, *a, **kw)
+        self.want["solve_p"] = 1.0
+
+    monkeypatch.setattr(probes.Probes, "__init__", __init__)
+
+
 @pytest.mark.parametrize("which", ["stale_solve", "stale_prior", "dropped_prior", "lk_answer",
                                    "lk_half", "hamming_answer"])
 def test_a_broken_path_is_not_correct(monkeypatch, which):
     _fault(monkeypatch, which)
     if which.endswith("_prior"):
-        # the short window holds few ticks, and a prior stops moving only
-        # once there is one: compare every tick up to the cell's most
-        from plbench import probes
-
-        init = probes.Probes.__init__
-
-        def __init__(self, *a, **kw):
-            init(self, *a, **kw)
-            self.want["solve_p"] = 1.0
-
-        monkeypatch.setattr(probes.Probes, "__init__", __init__)
+        every_tick(monkeypatch)
     rc, out, _ = _run(ARGS)
     assert rc == 0
     assert json.loads(out[-1])["correct"] is False

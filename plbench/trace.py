@@ -2,9 +2,10 @@
 
 The profiler runs over the first `trace_s` seconds of the window with CPU
 and CUDA activity; the harness's spans (`plbench.<layer>`) are
-record_function ranges around the calls into each layer. A device
-operation belongs to the span that was open on the launching thread when
-its launch (the CUDA runtime call with the same correlation id) was made;
+record_function ranges around the calls into each layer, which may nest
+(a burst step's frontends inside its solve). A device operation belongs to
+the innermost span that was open on the launching thread when its launch
+(the CUDA runtime call with the same correlation id) was made;
 kernels replayed from a CUDA graph belong to the span of the graph's
 launch. The raw events are summed here: `key_averages()` builds a tree of
 every event first, which takes minutes for a window's million events.
@@ -35,18 +36,7 @@ def summarize(prof, window_s: float) -> dict:
                                                name[len("plbench."):]))
         elif name.startswith(("cuda", "cu")) and e.correlation_id():
             launches[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
-    for v in spans.values():
-        v.sort()
-    starts = {tid: [s[0] for s in v] for tid, v in spans.items()}
-
-    def span_at(t, tid):
-        v = spans.get(tid)
-        if not v:
-            return None
-        i = bisect.bisect_right(starts[tid], t) - 1
-        if i >= 0 and v[i][0] <= t < v[i][1]:
-            return v[i][2]
-        return None
+    span_at = innermost(spans)
 
     by_span, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
     for s, e, name, cid in dev:
@@ -79,6 +69,35 @@ def summarize(prof, window_s: float) -> dict:
             "breakdown": {"device_ops": [[n, s] for n, s in top],
                           "idle_gaps": [[n, s] for n, s in
                                         sorted(idle.items(), key=lambda kv: -kv[1])[:10]]}}
+
+
+def innermost(spans: dict):
+    """`span_at(t, tid)`: the name of the innermost span open at `t` on
+    thread `tid`, or None; `spans` maps a thread to its (start, end, name)
+    ranges, which nest as a thread's context managers do."""
+    parents, starts = {}, {}
+    for tid, v in spans.items():
+        v.sort(key=lambda r: (r[0], -r[1]))  # an outer range before one it holds
+        par, open_ = [], []
+        for s, _, _ in v:
+            while open_ and v[open_[-1]][1] <= s:
+                open_.pop()
+            par.append(open_[-1] if open_ else -1)
+            open_.append(len(par) - 1)
+        parents[tid], starts[tid] = par, [r[0] for r in v]
+
+    def span_at(t, tid):
+        v = spans.get(tid)
+        if not v:
+            return None
+        # the last range to start by `t`, or the innermost of its enclosing
+        # ones that `t` still falls in
+        i = bisect.bisect_right(starts[tid], t) - 1
+        while i >= 0 and not v[i][0] <= t < v[i][1]:
+            i = parents[tid][i]
+        return v[i][2] if i >= 0 else None
+
+    return span_at
 
 
 def kernel(summary: dict, key: str) -> tuple[float, int]:
